@@ -1,0 +1,297 @@
+"""The three static-band alignment kernels: CUDA wrappers, plain versions and
+launch counters.
+
+Counterpart of necat_tpu/align/pallas_banded.py. Lane l of target column j
+holds query row i = j + l - ctr with the per-pair band centre
+ctr = W/2 - floor((la - lb) / 2) (the extension clamps |la - lb| <= W/4).
+
+  diag_sub_matrix        (K2)  ENC u8[PB, MC, W] = mismatch | qbase << 1
+  banded_forward         (K1)  dirs u8[PB, MC, W] = op | mismatch << 2 |
+                               qbase << 3, and the cost at (la, lb)
+  banded_backtrack_cols  (K3)  cols i32[PB, MC] = op | match << 2 |
+                               qbase << 3 | k << 5, `words` insb words, lead
+
+Each wrapper runs its plain PyTorch version (``*_ref``) for tensors on the
+CPU, and launches its CUDA kernel (csrc/banded_kernels.cu) for tensors on a
+CUDA device; it raises for anything else. ``launches`` counts the kernel
+launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INF = 1 << 20
+OP_DIAG, OP_DEL, OP_INS, OP_PAD = 0, 1, 2, 3
+PAD_BASE = 127       # query padding value (never equals a target base 0..3)
+PAD_TARGET = 255     # target padding past b's width
+N_INSB = 7           # inserted bases recorded per insb word and run end
+KERNEL_WIDTHS = (64, 128, 256, 512, 1024)   # band widths the kernels are built for
+
+launches = {"diag_sub_matrix": 0, "banded_forward": 0,
+            "banded_backtrack_cols": 0}
+
+
+def band_centre(W: int, la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """ctr = W/2 - floor((la - lb) / 2); floor, not truncation: la - lb is
+    often negative."""
+    return W // 2 - torch.div(la - lb, 2, rounding_mode="floor")
+
+
+# ---------------------------------------------------------------- plain versions
+
+def diag_sub_matrix_ref(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
+    """ENC[p, jc, l] = (aq != tc) | (aq & 3) << 1 with aq = a[p, jc + l - ctr_p]
+    (PAD_BASE outside [0, L)) and tc = b[p, jc] (PAD_TARGET past b's width)."""
+    PB, L = a.shape
+    ctr = band_centre(W, la.long(), lb.long())
+    src = torch.arange(MC + W, device=a.device)[None, :] - ctr[:, None]
+    ok = (src >= 0) & (src < L)
+    a_shift = torch.where(ok, a.gather(1, src.clamp(0, L - 1)), PAD_BASE)
+    dq = a_shift.unfold(1, W, 1)[:, :MC, :]                # [PB, MC, W] view
+    mc = min(MC, b.shape[1])
+    tcol = torch.full((PB, MC), PAD_TARGET, dtype=torch.uint8, device=a.device)
+    tcol[:, :mc] = b[:, :mc]
+    return (dq != tcol[:, :, None]).to(torch.uint8) | ((dq & 3) << 1)
+
+
+def _column_blocks(n: int, block: int = 1024):
+    """[lo, hi) column ranges: the vectorised passes of the plain versions
+    work a block at a time to bound their memory."""
+    return [(lo, min(lo + block, n)) for lo in range(0, n, block)]
+
+
+def banded_forward_ref(enc, la, lb, W: int):
+    """Static-band DP over ENC u8[PB, MC, W] -> (dirs u8[PB, MC, W], cost
+    i32[PB]), one vectorised step per target column.
+
+    Each column's D is stored as [PB, W+1] with a spare lane W held at INF,
+    in one flat buffer of all columns: the left neighbour (lane l+1) and the
+    up neighbour (lane l-1) of every lane are then contiguous slices one
+    element off. Lanes below row 0 need no mask before the insertion scan
+    (they hold INF or more and cannot lower a finite value); lanes outside
+    rows [0, la] are set to INF after it."""
+    PB, MC, _ = enc.shape
+    dev = enc.device
+    i32 = torch.int32
+    la = la.to(i32)[:, None]
+    lb = lb.to(i32)[:, None]
+    ctr = band_centre(W, la, lb)
+    ncol = min(MC, int(lb.max())) if PB else 0
+    N = PB * (W + 1)
+    lane1 = torch.arange(W + 1, dtype=i32, device=dev)[None, :]
+
+    def rows(j):
+        """Query row of every lane of columns j; the spare lane is outside."""
+        return torch.where(lane1 == W, -1, lane1 + (j - ctr))
+
+    Dall = torch.empty((ncol + 1) * N + 1, dtype=i32, device=dev)
+    i0 = rows(torch.zeros((), dtype=i32, device=dev))
+    Dall[:N] = torch.where((i0 < 0) | (i0 > la), INF, i0).reshape(-1)
+    dirs = torch.full((PB, MC, W), OP_PAD, dtype=torch.uint8, device=dev)
+    for lo, hi in _column_blocks(ncol, 256):
+        j = torch.arange(lo + 1, hi + 1, dtype=i32, device=dev)[:, None, None]
+        i = rows(j)                                           # [cols, PB, W+1]
+        outside = (i < 0) | (i > la)
+        row0 = (i == 0).reshape(hi - lo, -1)
+        e = torch.nn.functional.pad(enc[:, lo:hi].to(i32), (0, 1)).transpose(0, 1)
+        sub = (e & 1).reshape(hi - lo, -1)
+        enc_bits = (e << 2).reshape(hi - lo, -1)
+        out = torch.empty((hi - lo, PB, W + 1), dtype=torch.uint8, device=dev)
+        for c in range(hi - lo):
+            jc = lo + c + 1
+            base = jc * N                                   # this column's D
+            diag = Dall[base - N:base] + sub[c]
+            left = Dall[base - N + 1:base + 1] + 1
+            A = torch.minimum(diag, left)
+            A.masked_fill_(row0[c], jc)                     # row 0: all deletions
+            # insertion chain: D[l] = lane + min over m <= l of (A[m] - m)
+            x = torch.cummin(A.view(PB, W + 1).sub_(lane1), dim=1).values
+            Dn = x.add_(lane1).clamp_max_(INF).masked_fill_(outside[c], INF).view(-1)
+            Dall[base:base + N] = Dn
+            upv = Dall[base - 1:base + N - 1] + 1
+            op = torch.where(Dn == diag, OP_DIAG,
+                             torch.where(Dn == upv, OP_INS,
+                                         torch.where(Dn == left, OP_DEL, OP_PAD)))
+            out[c] = (op | enc_bits[c]).view(PB, W + 1)
+        dirs[:, lo:hi] = out[:, :, :W].transpose(0, 1)
+    # columns past lb are padding, and D stops changing there: the cost is
+    # read at column min(lb, ncol)
+    past_lb = torch.arange(MC, device=dev)[None, :] >= lb
+    dirs.masked_fill_(past_lb[:, :, None], OP_PAD)
+    Dcols = Dall[:(ncol + 1) * N].view(ncol + 1, PB, W + 1)
+    D_end = Dcols[lb[:, 0].clamp(0, ncol).long(), torch.arange(PB, device=dev)]
+    l_end = (la - lb + ctr).clamp(0, W - 1)
+    return dirs, D_end.gather(1, l_end.long())[:, 0]
+
+
+def banded_backtrack_cols_ref(dirs, la, lb, W: int, words: int = 1):
+    """Walk dirs from (la, lb) back one target column per step -> (cols
+    i32[PB, MC], tuple of `words` insb i32[PB, MC], lead i32[PB]).
+
+    At a column with walk slot `cur`, the insertion run under cur ends at
+    sel = the highest non-INS lane <= cur (-1 if none), the consumer op sits
+    at sel, and the walk moves to sel (diagonal) or sel + 1 (deletion). The
+    next slot is thus a per-column function of cur, tabulated for all
+    columns at once; the sequential walk is one lookup per column, and the
+    column encodings follow from the visited slots."""
+    PB, MC, _ = dirs.shape
+    dev = dirs.device
+    i32 = torch.int32
+    la = la.to(i32)[:, None]
+    lb = lb.to(i32)[:, None]
+    ctr = band_centre(W, la, lb)
+    ncol = min(MC, int(lb.max())) if PB else 0
+    lane16 = torch.arange(W, dtype=torch.int16, device=dev)
+    cols = torch.full((PB, MC), OP_PAD, dtype=i32, device=dev)
+    insb = torch.zeros((words, PB, MC), dtype=i32, device=dev)
+
+    def consumer(blk, sel, j):
+        """(op, byte at sel) of the consumer op at slot sel of columns j."""
+        vsel = blk.gather(2, sel.clamp(min=0).long()).to(i32)
+        vsel = torch.where(sel >= 0, vsel, 0)
+        o = torch.where(j - ctr[:, :, None] + sel <= 0, OP_DEL, vsel & 3)   # row-0 border
+        return o, vsel
+
+    # sel_at[p, jc, c] = sel when the walk enters column jc+1 at slot c,
+    # step[p, jc, c] = the slot it leaves at
+    sel_at = torch.empty((PB, ncol, W), dtype=torch.int16, device=dev)
+    step = torch.empty((PB, ncol, W), dtype=torch.int16, device=dev)
+    for lo, hi in _column_blocks(ncol):
+        blk = dirs[:, lo:hi]
+        s = torch.where((blk & 3) != OP_INS, lane16, -1).cummax(dim=2).values
+        j = torch.arange(lo + 1, hi + 1, dtype=i32, device=dev)[None, :, None]
+        o, _ = consumer(blk, s, j)
+        sel_at[:, lo:hi] = s
+        step[:, lo:hi] = torch.where(o == OP_DIAG, s, s + 1).clamp(0, W - 1)
+    cur = (la - lb + ctr).clamp(0, W - 1).long()
+    visited = torch.empty((PB, ncol), dtype=torch.int64, device=dev)
+    for j in range(ncol, 0, -1):
+        visited[:, j - 1] = cur[:, 0]
+        nxt = step[:, j - 1].gather(1, cur).long()
+        cur = torch.where(j <= lb, nxt, cur)
+    lead = torch.minimum((cur - ctr).clamp(min=0), la)[:, 0].to(i32)
+
+    for lo, hi in _column_blocks(ncol):
+        blk = dirs[:, lo:hi]
+        c = visited[:, lo:hi, None]
+        sel = sel_at[:, lo:hi].gather(2, c).to(i32)
+        j = torch.arange(lo + 1, hi + 1, dtype=i32, device=dev)[None, :, None]
+        o, vsel = consumer(blk, sel, j)
+        isdiag = o == OP_DIAG
+        match = torch.where(isdiag, 1 - ((vsel >> 2) & 1), 0)
+        qbase = torch.where(isdiag, (vsel >> 3) & 3, 0)
+        k = c.to(i32) - sel
+        active = (j[:, :, 0] <= lb)
+        val = ((k << 5) | (qbase << 3) | (match << 2) | o)[:, :, 0]
+        cols[:, lo:hi] = torch.where(active, val, OP_PAD)
+        # inserted bases of the run (lanes sel+1 .. cur): word w holds run
+        # ranks 7w+1 .. 7w+7, the first bases at bits 2(d-1) counted from
+        # the run start, the last at bits 14+2(d-1) counted from its end
+        kc = k.clamp(max=N_INSB * words)
+        qb = lambda ln: ((blk.gather(2, ln.clamp(0, W - 1).long()) >> 3) & 3).to(i32)
+        for w in range(words):
+            acc = torch.zeros_like(k)
+            for d in range(1, N_INSB + 1):
+                r = N_INSB * w + d                      # rank from the run start
+                acc |= torch.where(r <= kc, qb(sel + r) << (2 * (d - 1)), 0)
+                acc |= torch.where(r <= kc, qb(c.to(i32) - (r - 1)) << (14 + 2 * (d - 1)), 0)
+            insb[w, :, lo:hi] = torch.where(active, acc[:, :, 0], 0)
+    return cols, tuple(insb), lead
+
+
+# -------------------------------------------------------------- CUDA wrappers
+
+def _on_cpu(*tensors) -> bool:
+    """True for CPU tensors (plain version), False for CUDA tensors (kernel);
+    raises on mixed or other devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_width(W: int) -> None:
+    if W not in KERNEL_WIDTHS:
+        raise ValueError(f"band width {W}: the CUDA kernels take W in {KERNEL_WIDTHS}")
+
+
+def _launch(fn, device, *args) -> None:
+    """Launch `fn` on `device`'s current stream; raise on a launch error."""
+    from necat_tpu_torch.utils.build import load_kernels
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}")
+
+
+def diag_sub_matrix(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
+    """K2: ENC u8[PB, MC, W] from a u8[PB, L], b u8[PB, Lb], la/lb i32[PB]."""
+    if _on_cpu(a, b, la, lb):
+        return diag_sub_matrix_ref(a, b, la, lb, W, MC)
+    PB, L = a.shape
+    _check(a, "a", torch.uint8, (PB, L))
+    _check(b, "b", torch.uint8, (PB, b.shape[1]))
+    _check(la, "la", torch.int32, (PB,))
+    _check(lb, "lb", torch.int32, (PB,))
+    if W % 4 or PB > 65535:
+        raise ValueError(f"diag_sub_matrix: W={W} must be a multiple of 4 and "
+                         f"PB={PB} at most 65535")
+    out = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
+    _launch("necat_diag_sub_matrix", a.device, a.data_ptr(), L, b.data_ptr(),
+            b.shape[1], la.data_ptr(), lb.data_ptr(), out.data_ptr(), PB, MC, W)
+    launches["diag_sub_matrix"] += 1
+    return out
+
+
+def banded_forward(enc, la, lb, W: int):
+    """K1: (dirs u8[PB, MC, W], cost i32[PB]) from ENC u8[PB, MC, W]."""
+    if _on_cpu(enc, la, lb):
+        return banded_forward_ref(enc, la, lb, W)
+    PB, MC, _ = enc.shape
+    _check_width(W)
+    _check(enc, "enc", torch.uint8, (PB, MC, W))
+    _check(la, "la", torch.int32, (PB,))
+    _check(lb, "lb", torch.int32, (PB,))
+    dirs = torch.empty_like(enc)
+    cost = torch.empty((PB,), dtype=torch.int32, device=enc.device)
+    _launch("necat_banded_forward", enc.device, enc.data_ptr(), la.data_ptr(),
+            lb.data_ptr(), dirs.data_ptr(), cost.data_ptr(), PB, MC, W)
+    launches["banded_forward"] += 1
+    return dirs, cost
+
+
+def banded_backtrack_cols(dirs, la, lb, W: int, words: int = 1):
+    """K3: (cols i32[PB, MC], tuple of `words` insb i32[PB, MC], lead i32[PB])."""
+    if _on_cpu(dirs, la, lb):
+        return banded_backtrack_cols_ref(dirs, la, lb, W, words)
+    PB, MC, _ = dirs.shape
+    _check_width(W)
+    _check(dirs, "dirs", torch.uint8, (PB, MC, W))
+    _check(la, "la", torch.int32, (PB,))
+    _check(lb, "lb", torch.int32, (PB,))
+    if not 1 <= words <= 3:
+        raise ValueError(f"words={words}: 1..3 insb words")
+    cols = torch.empty((PB, MC), dtype=torch.int32, device=dirs.device)
+    insb = torch.empty((words, PB, MC), dtype=torch.int32, device=dirs.device)
+    lead = torch.empty((PB,), dtype=torch.int32, device=dirs.device)
+    _launch("necat_banded_backtrack", dirs.device, dirs.data_ptr(), la.data_ptr(),
+            lb.data_ptr(), cols.data_ptr(), insb.data_ptr(), lead.data_ptr(),
+            PB, MC, W, words)
+    launches["banded_backtrack_cols"] += 1
+    return cols, tuple(insb), lead

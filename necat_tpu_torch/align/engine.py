@@ -1,0 +1,188 @@
+"""Chunked banded extension (counterpart of necat_tpu/align/engine.py).
+
+Pairs are windowed on their subject, tiered by length and cut into chunks
+that stay inside one caller group; each chunk's pair rows are gathered on the
+device from the packed stores by one int32 descriptor array and extended.
+The chunk's stats come back to the host once, on first use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from necat_tpu.utils import shapes
+from necat_tpu_torch.align.banded import TAIL_MATCH, extend_batch
+from necat_tpu_torch.io.devstore import gather_rows
+
+# descriptor columns (int32; DeviceReadStore guarantees offsets < 2^31)
+DESC_COLS = ("qg", "qglen", "qrc", "tg", "tglen", "qlen", "tlen", "aq", "at")
+
+
+def gather_extend(qdev, sdev, desc: torch.Tensor, W: int, L: int,
+                  tail_match: int = TAIL_MATCH, insb_words: int = 1) -> dict:
+    """Gather one chunk's pair rows from the packed stores and extend them.
+
+    desc: int32[PB, >= 9] on the stores' device, DESC_COLS first. Returns
+    extend_batch's fields plus the gathered query rows (qbatch)."""
+    c = {k: desc[:, i] for i, k in enumerate(DESC_COLS)}
+    qb = gather_rows(qdev.words, qdev.total_bases, c["qg"].long(),
+                     c["qglen"].long(), c["qrc"].bool(), L)
+    tb = gather_rows(sdev.words, sdev.total_bases, c["tg"].long(),
+                     c["tglen"].long(), torch.zeros_like(c["qrc"], dtype=torch.bool), L)
+    out = extend_batch(qb, c["qlen"], tb, c["tlen"], c["aq"], c["at"], W=W,
+                       tail_match=tail_match, insb_words=insb_words)
+    out["qbatch"] = qb
+    return out
+
+
+@dataclasses.dataclass
+class ExtChunk:
+    """One extended chunk: its device outputs and host metadata."""
+
+    out: dict                 # device tensors (stats, cols, insb, lead, ...)
+    sel: np.ndarray           # the caller's pair ids of the chunk's real lanes
+    n_real: int
+    L: int
+    W: int
+    ws: np.ndarray            # int64[n_real] window starts (absolute subject)
+    group: int = 0
+    _stats: Optional[np.ndarray] = None
+
+    def stats(self) -> np.ndarray:
+        """Host stats [6, PB]: qoff, qend, toff, tend, n_cols, n_match
+        (toff/tend in window coordinates). Syncs on the first call."""
+        if self._stats is None:
+            self._stats = self.out["stats"].cpu().numpy()
+        return self._stats
+
+
+def collect_stats(chunks: List[ExtChunk], stats: dict, base_ci: int = 0) -> None:
+    """Merge chunk stats into the flat per-pair arrays of `stats` (from
+    new_stats; toff/tend made absolute); stats["lane"] maps a pair id to its
+    (chunk index, lane)."""
+    for ci, ch in enumerate(chunks, start=base_ci):
+        st = ch.stats()
+        r = slice(0, ch.n_real)
+        idx = ch.sel
+        stats["qoff"][idx] = st[0, r]
+        stats["qend"][idx] = st[1, r]
+        stats["toff"][idx] = st[2, r] + ch.ws
+        stats["tend"][idx] = st[3, r] + ch.ws
+        stats["n_cols"][idx] = st[4, r]
+        stats["ident"][idx] = np.where(
+            st[4, r] > 0, 100.0 * st[5, r] / np.maximum(st[4, r], 1), 0.0)
+        for k, p in enumerate(idx):
+            stats["lane"][int(p)] = (ci, k)
+
+
+def new_stats(n_pairs: int) -> dict:
+    out = {k: np.zeros(n_pairs, np.int64)
+           for k in ("qoff", "qend", "toff", "tend", "n_cols")}
+    out["ident"] = np.zeros(n_pairs, np.float64)
+    out["lane"] = {}
+    return out
+
+
+class ExtendEngine:
+    """Plans and runs extension chunks over a query and a subject
+    DeviceReadStore (both on one device)."""
+
+    def __init__(self, qdev, sdev, pairs_per_chunk: int = 1024):
+        self.qdev = qdev
+        self.sdev = sdev
+        self.cap = pairs_per_chunk
+        self.device = qdev.device
+
+    def plan(
+        self,
+        qids: np.ndarray,       # per-pair query read id (into qdev)
+        qdir: np.ndarray,       # per-pair query strand
+        qsize: np.ndarray,      # query lengths
+        tg_base: np.ndarray,    # absolute base offset of each pair's subject
+        tsize: np.ndarray,      # subject lengths
+        aq: np.ndarray,         # anchor on the query (qdir-strand coords)
+        at_abs: np.ndarray,     # anchor on the subject (absolute coords)
+        W: int,
+        groups: Optional[np.ndarray] = None,   # chunk-purity key per pair
+        window_margin: int = 600,
+        extra_cols: Optional[Dict[str, np.ndarray]] = None,
+    ) -> List[dict]:
+        """Window + tier + chunk the pair set. Returns per-chunk dicts: desc
+        int32[PB, 9 + len(extra_cols)], take (indices into the pair arrays), ws
+        (window starts), L (length tier), n_real, group, PB. Extra per-pair
+        columns follow the 9 DESC_COLS in dict order; padding lanes hold -1
+        there.
+
+        Subject windows around the anchor are bounded by 1.3x the query side
+        plus a margin (oc_aligner.c:127-131), so the padded target size
+        follows the query length. Each chunk holds PB = max(8, next power of
+        two >= its pairs) lanes, at most the tier's pairs_per_chunk: on the
+        card a chunk of any size costs no extra compile, so it is sized to
+        its work."""
+        qids = np.asarray(qids)
+        if len(qids) == 0:
+            return []
+        left_need = (np.asarray(aq).astype(np.int64) * 13) // 10 + window_margin
+        right_need = ((qsize - aq).astype(np.int64) * 13) // 10 + window_margin
+        ws = np.maximum(at_abs - left_need, 0)
+        we = np.minimum(at_abs + right_need, tsize.astype(np.int64))
+        wlen = we - ws
+        tier = np.array([shapes.length_tier(int(max(qsize[i], wlen[i])))
+                         for i in range(len(qids))])
+        gkey = np.zeros(len(qids), np.int64) if groups is None else np.asarray(groups)
+        # within a group, largest tiers first; a chunk absorbs same-group
+        # pairs of any lower tier
+        order = np.lexsort((qsize, -tier, gkey))
+        n_extra = len(extra_cols) if extra_cols else 0
+        planned: List[dict] = []
+        cs = 0
+        while cs < len(order):
+            i0 = order[cs]
+            L = int(tier[i0])
+            g = gkey[i0]
+            take = order[cs:cs + min(shapes.pairs_per_chunk(L, W), self.cap)]
+            keep = gkey[take] == g
+            if not keep.all():                  # cut at the group boundary
+                take = take[:np.argmin(keep)]
+            cs += len(take)
+            n_real = len(take)
+            PB = max(8, 1 << (n_real - 1).bit_length())
+            desc = np.zeros((PB, len(DESC_COLS) + n_extra), np.int32)
+            qi = qids[take]
+            desc[:n_real, 0] = self.qdev.offsets[qi]
+            desc[:n_real, 1] = self.qdev.offsets[qi + 1] - self.qdev.offsets[qi]
+            desc[:n_real, 2] = qdir[take]
+            desc[:n_real, 3] = tg_base[take] + ws[take]
+            desc[:n_real, 4] = wlen[take]
+            desc[:n_real, 5] = qsize[take]
+            desc[:n_real, 6] = wlen[take]
+            desc[:n_real, 7] = aq[take]
+            desc[:n_real, 8] = at_abs[take] - ws[take]
+            if extra_cols:
+                desc[:, len(DESC_COLS):] = -1
+                for ci, arr in enumerate(extra_cols.values()):
+                    desc[:n_real, len(DESC_COLS) + ci] = np.asarray(arr)[take]
+            planned.append(dict(desc=desc, take=take, ws=ws[take].copy(),
+                                L=L, n_real=n_real, group=int(g), PB=PB))
+        return planned
+
+    def submit(self, sel, qids, qdir, qsize, tg_base, tsize, aq, at_abs, W: int,
+               groups: Optional[np.ndarray] = None, window_margin: int = 600,
+               insb_words: int = 1) -> List[ExtChunk]:
+        """Plan the pairs (plan's arguments; sel = the caller's pair ids) and
+        extend every chunk. Kernel launches are asynchronous; a chunk's
+        stats() is its sync point."""
+        sel = np.asarray(sel)
+        chunks: List[ExtChunk] = []
+        for p in self.plan(qids, qdir, qsize, tg_base, tsize, aq, at_abs, W,
+                           groups=groups, window_margin=window_margin):
+            desc = torch.from_numpy(p["desc"]).to(self.device)
+            out = gather_extend(self.qdev, self.sdev, desc, W, p["L"],
+                                insb_words=insb_words)
+            chunks.append(ExtChunk(out=out, sel=sel[p["take"]], n_real=p["n_real"],
+                                   L=p["L"], W=W, ws=p["ws"], group=p["group"]))
+        return chunks

@@ -1,0 +1,298 @@
+"""Correction chunks: gather -> extend -> accept -> scatter on the device.
+
+Counterpart of necat_tpu/consensus/fused.py without the long-indel rescue.
+One chunk runs the row gather, the banded extension, the acceptance test
+(identity cutoff / mapping range / full-coverage exception) and the weighted
+tag scatter into the bucket's consensus tensors, and returns a small int32
+stats array. The adaptive identity cutoff (error_estimate.c:32-64) is kept on
+the device too: a round-0 identity pass writes per-template (ident, good,
+span) triples into a small buffer that cutoff_from_idents reduces.
+
+Acceptance mirrors consensus_one_read.c:215-392 + consensus_aux.c:93-122.
+Where the JAX package donates the consensus tensors and the ident buffer to
+its programs, these functions update the same tensors in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from necat_tpu_torch.align.banded import TAIL_MATCH
+from necat_tpu_torch.align.engine import DESC_COLS, gather_extend
+from necat_tpu_torch.consensus.tags import scatter_chunk
+
+# extra desc columns after the 9 DESC_COLS (engine.plan extra_cols)
+#   row    — template row within its bucket (TB = dead lane)
+#   tsfull — full template length (the other lengths are window lengths)
+#   ws     — window start on the template (absolute)
+#   slot   — round-0 ident-buffer slot (sequential per template)
+FUSED_EXTRA = ("row", "tsfull", "ws", "slot")
+_C = {k: i for i, k in enumerate(DESC_COLS + FUSED_EXTRA)}
+
+IDENT_SLOTS = 32        # round-0 ident buffer slots per template (>= n_ident+10)
+
+_BUF_KEYS = ("left_cols", "left_insb", "left_lead", "left_leadb", "left_jc",
+             "right_cols", "right_insb", "right_lead", "right_leadb",
+             "right_jc")
+
+
+# ------------------------------------------------------------- predicates
+# Pure arithmetic on numpy arrays and torch tensors alike.
+
+def is_good_overlap(ql, qr, qs, tl, tr, ts, margin=200):
+    """error_estimate.c:7-30 — overlap ends near sequence ends on paired sides."""
+    qlh, qrh, tlh, trh = ql, qs - qr, tl, ts - tr
+    m = margin
+    return ((qlh <= m) & (qrh <= m)) | ((tlh <= m) & (trh <= m)) | \
+           ((qrh <= m) & (tlh <= m)) | ((trh <= m) & (qlh <= m))
+
+
+def check_mapping_range(ql, qr, qs, tl, tr, ts, min_size, ratio):
+    """consensus_aux.c:115-122."""
+    return ((qr - ql) >= min_size) | ((tr - tl) >= min_size) | \
+           ((qr - ql) >= qs * ratio) | ((tr - tl) >= ts * ratio)
+
+
+def is_full_cov_ovlp(ql, qr, qs, tl, tr, ts, ovlp_size, tail):
+    """consensus_aux.c:93-112 — query or template nearly fully covered."""
+    r = ((ql <= tail) & (qs - qr <= tail)) | ((tl <= tail) & (ts - tr <= tail))
+    r |= (qs - qr <= tail) & (tl <= tail) & ((qr - ql) >= ovlp_size)
+    r |= (ts - tr <= tail) & (ql <= tail) & ((qr - ql) >= ovlp_size)
+    return r
+
+
+def calc_cns_weight(ident_perc):
+    """Per-overlap consensus weight (consensus_one_read.c:11-16), f32."""
+    e = (100.0 - ident_perc) / 100.0 / 2.0
+    w = (1.0 - e) * (1.0 - e) + e * e / 3.0
+    return torch.where(100.0 - ident_perc <= 1e-6, 1.0, w).to(torch.float32)
+
+
+# ------------------------------------------------------------- chunk steps
+
+def _extend(qdev, sdev, desc, W, L, tail_match, insb_words):
+    c = {k: desc[:, i] for k, i in _C.items()}
+    return c, gather_extend(qdev, sdev, desc, W, L, tail_match, insb_words)
+
+
+def _chunk_bufs(out) -> dict:
+    """The per-column buffers the tag scatter reads, insb words as tuples."""
+    bufs = {k: out[k] for k in _BUF_KEYS}
+    for side in ("left", "right"):
+        words = [out[f"{side}_insb"]]
+        while f"{side}_insb{len(words) + 1}" in out:
+            words.append(out[f"{side}_insb{len(words) + 1}"])
+        bufs[f"{side}_insb"] = tuple(words)
+    return bufs
+
+
+def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
+                        min_align_size, mapping_ratio, allow_fullcov):
+    """Acceptance of one chunk + tag scatter of its accepted lanes; returns
+    the stats int32[7, PB] = qoff, qend, toff, tend (window), n_cols,
+    n_match, accepted."""
+    TB = weights.shape[0] - 1
+    ql, qr = stats6[0], stats6[1]
+    tl = stats6[2] + c["ws"]
+    tr = stats6[3] + c["ws"]
+    qs, ts = c["qlen"], c["tsfull"]
+    ok = stats6[4] >= min_align_size
+    ok &= check_mapping_range(ql, qr, qs, tl, tr, ts, min_align_size,
+                              mapping_ratio)
+    pass_ident = ident >= cutoff[c["row"].clamp(0, TB).long()]
+    if allow_fullcov:
+        pass_ident |= is_full_cov_ovlp(ql, qr, qs, tl, tr, ts, 5000, 100)
+    ok &= pass_ident
+    ok &= (c["row"] >= 0) & (c["row"] < TB)
+    w = torch.where(ok, calc_cns_weight(ident), 0.0)
+    row_eff = torch.where(ok, c["row"], TB)
+    scatter_chunk(weights, coverage,
+                  bufs["left_cols"], bufs["left_insb"], bufs["left_lead"],
+                  bufs["left_leadb"], bufs["left_jc"],
+                  bufs["right_cols"], bufs["right_insb"], bufs["right_lead"],
+                  bufs["right_leadb"], bufs["right_jc"],
+                  c["at"] + c["ws"], row_eff, w, ts)
+    return torch.cat([stats6, ok.to(torch.int32)[None]], dim=0)
+
+
+def extend_scatter(qdev, sdev, desc, cutoff, weights, coverage, *,
+                   min_align_size: int, mapping_ratio: float,
+                   allow_fullcov: bool, W: int, L: int,
+                   tail_match: int = TAIL_MATCH, insb_words: int = 1):
+    """One correction chunk: extend, accept against the device cutoffs
+    f32[TB+1], scatter into weights/coverage in place. desc: int32[PB, 13]
+    (DESC_COLS + FUSED_EXTRA) on the device. Returns stats int32[7, PB]."""
+    c, out = _extend(qdev, sdev, desc, W, L, tail_match, insb_words)
+    return _accept_and_scatter(c, out["stats"], out["ident"], cutoff, weights,
+                               coverage, _chunk_bufs(out), min_align_size,
+                               mapping_ratio, allow_fullcov)
+
+
+def ident_pass(qdev, sdev, desc, ibuf, *, min_align_size: int,
+               good_end_margin: int, W: int, L: int,
+               tail_match: int = TAIL_MATCH):
+    """Round-0 identity estimation: extend and write per-template (ident,
+    good, span) into ibuf f32[TB+1, IDENT_SLOTS, 3] at (row, slot), in place.
+    Returns (stats int32[6, PB], the chunk's per-column buffers), which
+    accept_scatter consumes once the cutoffs are known."""
+    c, out = _extend(qdev, sdev, desc, W, L, tail_match, 1)
+    TBp1, S, _ = ibuf.shape
+    ql, qr = out["qoff"], out["qend"]
+    tl = out["toff"] + c["ws"]
+    tr = out["tend"] + c["ws"]
+    qs, ts = c["qlen"], c["tsfull"]
+    ok_align = out["n_cols"] >= min_align_size
+    good = is_good_overlap(ql, qr, qs, tl, tr, ts, good_end_margin) & ok_align
+    span = (((qr - ql) >= 0.6 * qs) | ((tr - tl) >= 0.6 * ts)) & ok_align
+    valid = (c["row"] >= 0) & (c["row"] < TBp1 - 1) & (c["slot"] >= 0) \
+        & (c["slot"] < S)
+    # invalid lanes all write zeros to the trash entry (TB, S-1)
+    row = torch.where(valid, c["row"], TBp1 - 1).long()
+    slot = torch.where(valid, c["slot"], S - 1).long()
+    vals = torch.stack([out["ident"], good.float(), span.float()], dim=1)
+    ibuf[row, slot] = torch.where(valid[:, None], vals, 0.0)
+    return out["stats"], _chunk_bufs(out)
+
+
+def accept_scatter(desc, stats6, cutoff, weights, coverage, bufs, *,
+                   min_align_size: int, mapping_ratio: float):
+    """Round-0 acceptance + tag scatter of an ident_pass chunk's retained
+    buffers (no re-extension; the full-coverage exception is off in round
+    0, consensus_one_read.c:273-278). Returns stats int32[7, PB]."""
+    c = {k: desc[:, i] for k, i in _C.items()}
+    n_cols, n_match = stats6[4], stats6[5]
+    ident = torch.where(n_cols > 0, 100.0 * n_match / n_cols.clamp(min=1), 0.0)
+    return _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage,
+                               bufs, min_align_size, mapping_ratio, False)
+
+
+def cutoff_from_idents(ibuf, *, n_ident: int) -> torch.Tensor:
+    """Per-template identity cutoffs f32[TB+1] from the round-0 buffer: the
+    first n_ident GOOD overlaps' idents (the first n_ident SPANNING ones when
+    good ones are scarce), then mean - 5*stddev over the top 70 % (100 % when
+    n < 8), 0 when n < 5 (error_estimate.c:32-64)."""
+    ident = ibuf[:, :, 0]
+    good = ibuf[:, :, 1] > 0.5
+    span = ibuf[:, :, 2] > 0.5
+    csum_g = torch.cumsum(good, dim=1)
+    csum_s = torch.cumsum(span, dim=1)
+    sel_g = good & (csum_g <= n_ident)
+    sel_s = span & (csum_s <= n_ident)
+    use_span = csum_g[:, -1].clamp(max=n_ident) < n_ident
+    sel = torch.where(use_span[:, None], sel_s, sel_g)
+    vals = torch.where(sel, ident, -torch.inf)
+    vals = torch.sort(vals, dim=1, descending=True).values
+    n = sel.sum(dim=1)
+    n_use = torch.where(n >= 8, torch.div(n * 7, 10, rounding_mode="floor"), n)
+    m = torch.arange(vals.shape[1], device=ibuf.device)[None, :] < n_use[:, None]
+    nu = n_use.clamp(min=1).to(torch.float32)
+    mean = torch.where(m, vals, 0.0).sum(dim=1) / nu
+    # two-pass (shifted) variance: E[x^2] - mean^2 near ident ~100 loses
+    # about 7 decimal digits to cancellation in f32
+    dv = torch.where(m, vals - mean[:, None], 0.0)
+    std = ((dv * dv).sum(dim=1) / nu).clamp(min=0.0).sqrt()
+    return torch.where(n >= 5, mean - 5.0 * std, 0.0).to(torch.float32)
+
+
+# ------------------------------------------------------------- host driver
+
+class FusedChunk:
+    """One dispatched chunk: its stats (device), pair indices and window
+    starts; ident-pass chunks also keep their desc and per-column buffers
+    until scatter_round0 consumes them."""
+
+    __slots__ = ("stats_dev", "sel", "n_real", "ws", "group", "bufs", "desc_dev")
+
+    def __init__(self, stats_dev, sel, n_real, ws, group, bufs=None, desc_dev=None):
+        self.stats_dev = stats_dev
+        self.sel = sel
+        self.n_real = n_real
+        self.ws = ws
+        self.group = group
+        self.bufs = bufs
+        self.desc_dev = desc_dev
+
+
+def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
+                  at_abs, rows, groups, cutoffs: dict, tensors: dict,
+                  W: int, insb_words: int, min_align_size: int,
+                  mapping_ratio: float, allow_fullcov: bool,
+                  slots=None, ibufs: dict | None = None,
+                  good_end_margin: int = 200,
+                  tail_match: int = TAIL_MATCH):
+    """Run one wave of pairs as chunks of `engine` (an ExtendEngine).
+
+    cutoffs: group -> f32[TB+1] device cutoffs; tensors: group -> (weights,
+    coverage), updated in place. With ibufs (round 0) only the ident pass
+    runs, writing ibufs[group] in place; `slots` (sequential per-template
+    ident slots) is then required. Returns the list of FusedChunk."""
+    npairs = len(qids)
+    if ibufs is not None and slots is None:
+        raise ValueError("dispatch_wave(ibufs=...) requires per-pair slots")
+    zeros = np.zeros(npairs, np.int64)
+    extra = dict(row=rows, tsfull=tsize_full, ws=zeros,
+                 slot=(slots if slots is not None else zeros))
+    planned = engine.plan(qids, qdir, qsize, tg_base, tsize_full, aq, at_abs, W,
+                          groups=groups, extra_cols=extra)
+    chunks = []
+    for p in planned:
+        desc = p["desc"]
+        desc[:p["n_real"], _C["ws"]] = p["ws"]     # this chunk's window starts
+        g = p["group"]
+        desc_dev = torch.from_numpy(desc).to(engine.device)
+        bufs = None
+        if ibufs is not None:
+            stats, bufs = ident_pass(
+                engine.qdev, engine.sdev, desc_dev, ibufs[g],
+                min_align_size=min_align_size, good_end_margin=good_end_margin,
+                W=W, L=p["L"], tail_match=tail_match)
+        else:
+            wts, cov = tensors[g]
+            stats = extend_scatter(
+                engine.qdev, engine.sdev, desc_dev, cutoffs[g], wts, cov,
+                min_align_size=min_align_size, mapping_ratio=mapping_ratio,
+                allow_fullcov=allow_fullcov, W=W, L=p["L"],
+                tail_match=tail_match, insb_words=insb_words)
+        chunks.append(FusedChunk(stats, p["take"], p["n_real"], p["ws"], g,
+                                 bufs=bufs, desc_dev=desc_dev))
+    return chunks
+
+
+def scatter_round0(chunks, cutoffs: dict, tensors: dict, min_align_size: int,
+                   mapping_ratio: float) -> None:
+    """Scatter round-0 ident chunks from their retained buffers once the
+    device cutoffs exist; replaces each chunk's stats with the 7-row form."""
+    for ch in chunks:
+        wts, cov = tensors[ch.group]
+        ch.stats_dev = accept_scatter(
+            ch.desc_dev, ch.stats_dev, cutoffs[ch.group], wts, cov, ch.bufs,
+            min_align_size=min_align_size, mapping_ratio=mapping_ratio)
+        ch.bufs = None
+        ch.desc_dev = None
+
+
+def new_fused_stats(n_pairs: int) -> dict:
+    out = {k: np.zeros(n_pairs, np.int64)
+           for k in ("qoff", "qend", "toff", "tend", "n_cols")}
+    out["ident"] = np.zeros(n_pairs, np.float64)
+    out["ok"] = np.zeros(n_pairs, bool)
+    return out
+
+
+def collect_fused(chunks, stats: dict) -> None:
+    """Merge chunk stats into flat per-pair host arrays (one device sync per
+    chunk; toff/tend converted to absolute template coordinates)."""
+    for ch in chunks:
+        st = ch.stats_dev.cpu().numpy()
+        r = slice(0, ch.n_real)
+        idx = ch.sel
+        stats["qoff"][idx] = st[0, r]
+        stats["qend"][idx] = st[1, r]
+        stats["toff"][idx] = st[2, r] + ch.ws
+        stats["tend"][idx] = st[3, r] + ch.ws
+        stats["n_cols"][idx] = st[4, r]
+        stats["ident"][idx] = np.where(
+            st[4, r] > 0, 100.0 * st[5, r] / np.maximum(st[4, r], 1), 0.0)
+        if st.shape[0] > 6:          # ident-pass chunks carry only 6 rows
+            stats["ok"][idx] = st[6, r].astype(bool)

@@ -1,0 +1,140 @@
+"""Package-level checks of necat_tpu_torch, and the CUDA kernels against
+their plain versions.
+
+This file imports no JAX, so that its CUDA tests run on a machine without it:
+    python -m pytest tests/test_torch_package.py --noconftest -m cuda
+Tests marked `cuda` skip where torch sees no CUDA device.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from necat_tpu.io import simulate
+from necat_tpu.io.readstore import ReadStore
+from necat_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "necat_tpu_torch.utils.build", "necat_tpu_torch.utils.device",
+    "necat_tpu_torch.io.devstore", "necat_tpu_torch.align.banded_kernels",
+    "necat_tpu_torch.align.banded", "necat_tpu_torch.align.engine",
+    "necat_tpu_torch.consensus.tags", "necat_tpu_torch.consensus.backbone",
+    "necat_tpu_torch.consensus.fused", "necat_tpu_torch.consensus.correct",
+    "necat_tpu_torch.index.kmer_index", "necat_tpu_torch.overlap.candidates",
+    "necat_tpu_torch.overlap.chain", "necat_tpu_torch.overlap.overlapper",
+]
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m.startswith('jaxlib'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.overlap.candidates import Candidates
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    store = ReadStore.from_seqs([np.zeros(100, np.uint8)] * 4)
+    with pytest.raises(RuntimeError):
+        correct_reads(store, Candidates.concat([]), device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _pairs(seed, PB, L, W):
+    rng = np.random.default_rng(seed)
+    em = simulate.ErrorModel(sub=0.05, ins=0.06, dele=0.05)
+    a = np.zeros((PB, L), np.uint8)
+    b = np.zeros((PB, L), np.uint8)
+    la = np.zeros(PB, np.int32)
+    lb = np.zeros(PB, np.int32)
+    for i in range(PB):
+        t = rng.integers(0, 4, int(rng.integers(L // 2, L - 16))).astype(np.uint8)
+        q = simulate.mutate(t, em, rng)[:L]
+        a[i, :len(q)], b[i, :len(t)] = q, t
+        la[i], lb[i] = min(len(q), len(t) + W // 4), min(len(t), len(q) + W // 4)
+    return [torch.from_numpy(x) for x in (a, b, la, lb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 2), (1024, 1)])
+def test_cuda_kernels_match_plain(cuda_device, W, words):
+    from necat_tpu_torch.align import banded_kernels as bk
+    PB, L = 37, 1024          # PB not a multiple of the warps per block
+    cpu = _pairs(W + words, PB, L, W)
+    dev = [x.to(cuda_device) for x in cpu]
+    enc_c = bk.diag_sub_matrix(*cpu, W, L)
+    enc_d = bk.diag_sub_matrix(*dev, W, L)
+    assert torch.equal(enc_d.cpu(), enc_c)
+    dirs_c, cost_c = bk.banded_forward(enc_c, cpu[2], cpu[3], W)
+    dirs_d, cost_d = bk.banded_forward(enc_d, dev[2], dev[3], W)
+    assert torch.equal(dirs_d.cpu(), dirs_c) and torch.equal(cost_d.cpu(), cost_c)
+    out_c = bk.banded_backtrack_cols(dirs_c, cpu[2], cpu[3], W, words)
+    out_d = bk.banded_backtrack_cols(dirs_d, dev[2], dev[3], W, words)
+    torch.cuda.synchronize()
+    assert torch.equal(out_d[0].cpu(), out_c[0])
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1]))
+    assert torch.equal(out_d[2].cpu(), out_c[2])
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_bad_inputs(cuda_device):
+    from necat_tpu_torch.align import banded_kernels as bk
+    enc = torch.zeros((4, 64, 96), dtype=torch.uint8, device=cuda_device)
+    la = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        bk.banded_forward(enc, la, la, 96)                 # no kernel for W=96
+    with pytest.raises(TypeError):
+        bk.banded_forward(enc[:, :, :64].contiguous(), la.long(), la, 64)
+    with pytest.raises(ValueError):
+        bk.banded_backtrack_cols(enc[:, :, :64], la, la, 64)   # not contiguous
+
+
+@pytest.mark.cuda
+def test_cuda_correction_matches_cpu(cuda_device):
+    from necat_tpu.consensus.options import CnsOptions
+    from necat_tpu.overlap.options import MapOptions
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.overlapper import find_all_candidates
+    genome = simulate.random_genome(12000, seed=33)
+    reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,
+                                        min_len=3000, max_len=5500, seed=34)
+    rs = ReadStore.from_seqs(reads)
+    mo = MapOptions(kmer_size=13)
+    co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32)
+    recs = []
+    for dev in ("cpu", cuda_device):
+        c = find_all_candidates(rs, rs, mo, pairwise=True, device=dev)
+        recs.append(correct_reads(rs, Candidates.concat([c, c.swap_roles()]), co,
+                                  device=dev))
+    assert len(recs[0]) == len(recs[1]) and any(r.corrected for r in recs[0])
+    for a, b in zip(*recs):
+        assert (a.tid, a.left, a.right, a.corrected) == (b.tid, b.left, b.right,
+                                                         b.corrected)
+        np.testing.assert_array_equal(a.seq, b.seq)
