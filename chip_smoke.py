@@ -17,16 +17,35 @@ Phases, each failing the run on error:
              339 reads, 4.02 Mb) through find_all_candidates -> swap_roles ->
              correct_reads with default options; every kernel must launch,
              and the corrected count and identity must stay within the
-             margins of necat_tpu's own run of this set on the CPU.
-It prints one JSON line of kernel results, the card line, and last a JSON
-status line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
-before printing any result.
+             margins of necat_tpu's own run of this set on the CPU;
+  6. rungs   K2, K1 and K3 at every width the rescue ladder reaches from
+             W0=128: 512 and 1024 (a warp per pair), 2048 and 4096 (a block
+             per pair), L=8192, PB=pairs_per_chunk(8192, W), against their
+             plain versions, exact equality, times beside the plain versions';
+  7. rescue  planted insertions of 300, 600 and 1000 bp (the rungs 1024,
+             2048 and 4096 each carry a pair): extend_candidates and
+             correct_reads with rescue_long_indels on "cuda" against "cpu",
+             identical M4 and records; K1 and K3 must launch at W=2048 and
+             4096;
+  8. correct `python -m necat_tpu_torch.pipeline.cli correct <cfg> --device
+             cuda` (Project.run_correct; NUM_ITER=2, the config template's
+             options: iteration 2 runs the rescue ladder) on the bench read
+             set; cns_final must keep >= 97 % of main's corrected reads at an
+             identity no more than 0.5 points below main's. Its per-iteration
+             seconds and pairs by band come from the stage's manifest.
+The launch counts are set to 0 before each path (main, rescue, correct) and
+read after it. It prints one JSON line of kernel results, the card line, and
+last a JSON status line {"ok": true, "device": {...}}. Without CUDA it exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +60,10 @@ import torch  # noqa: E402
 # no more than 0.5 percentage points lower.
 JAX_CPU_REFERENCE = {"corrected_reads": 339, "identity": 99.13}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
+RUNGS = (512, 1024, 2048, 4096)      # the rescue ladder's widths from W0=128
+WIDE = (2048, 4096)                  # the widths K1 and K3 run a block per pair at
+RESCUE_INSERTS = (0, 300, 0, 600, 1000, 0)
+WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
@@ -106,8 +129,17 @@ def _max_abs_err(x, y) -> float:
     return err
 
 
+def _cuda_kernel(name: str, W: int) -> str:
+    """The function in KERNEL_SOURCE that the wrapper launches at width W."""
+    if name == "diag_sub_matrix":
+        return "diag_sub_matrix_kernel"
+    base = "banded_forward" if name == "banded_forward" else "banded_backtrack"
+    return f"{base}_kernel<{W}>"
+
+
 def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
-    """Each kernel against its plain version at one production chunk."""
+    """Each kernel against its plain version at one production chunk;
+    results keyed (kernel, W)."""
     from necat_tpu.io import simulate
     from necat_tpu.utils import shapes
     from necat_tpu_torch.align import banded_kernels as bk
@@ -143,9 +175,10 @@ def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
         err = _max_abs_err(got, want)
         ms = _time_ms(kernel, 5)
         plain_ms = _time_ms(plain, 1)
-        results[name] = dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                             replaces=REPLACES[name], max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms)
+        results[(name, W)] = dict(name=name, W=W, cuda_kernel=_cuda_kernel(name, W),
+                                  route="cuda", source=KERNEL_SOURCE,
+                                  replaces=REPLACES[name], max_abs_err=err, ms=ms,
+                                  plain_ms=plain_ms)
         print(f"kernel {name}: PB={PB} L={L} W={W} max_abs_err={err} "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
         if err != 0.0:
@@ -190,16 +223,18 @@ def check_slice(dev) -> None:
     print("slice: cuda and cpu records identical", flush=True)
 
 
-def accuracy_sample(recs, reads, genome, st, sd, ln, n_sample=24):
+def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
     """Mean identity to the true genome interval of the first n_sample
-    corrected pieces of >= 2 kb (bench.py:accuracy_sample)."""
+    corrected pieces of >= 2 kb (bench.py:accuracy_sample); a piece
+    [left, right) of a read of lengths[tid] maps to the same fraction of the
+    read's genome interval."""
     from necat_tpu.io import simulate
     idents = []
     for r in recs:
         if not r.corrected or len(idents) >= n_sample:
             continue
         i = r.tid
-        frac_l, frac_r = r.left / len(reads[i]), r.right / len(reads[i])
+        frac_l, frac_r = r.left / lengths[i], r.right / lengths[i]
         s0, L0 = int(st[i]), int(ln[i])
         if sd[i] == 0:
             a, b = s0 + int(frac_l * L0), s0 + int(frac_r * L0)
@@ -212,7 +247,7 @@ def accuracy_sample(recs, reads, genome, st, sd, ln, n_sample=24):
     return round(float(np.mean(idents)), 2) if idents else None
 
 
-def main_path(dev, kernels: dict) -> None:
+def main_path(dev, launch_counts: dict) -> dict:
     from necat_tpu.consensus.options import CnsOptions
     from necat_tpu.overlap.options import MapOptions
     from necat_tpu.utils.benchdata import gen_benchmark_reads
@@ -222,8 +257,7 @@ def main_path(dev, kernels: dict) -> None:
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
     genome, store, (st, sd, ln) = gen_benchmark_reads(genome_size=200_000,
                                                       coverage=20, seed=7)
-    for k in bk.launches:
-        bk.launches[k] = 0
+    bk.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
@@ -233,12 +267,11 @@ def main_path(dev, kernels: dict) -> None:
     recs = correct_reads(store, call, CnsOptions(), device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(bk.launches)
-    for k, n in launches.items():
-        kernels[k]["launches"] = n
+    launch_counts["main"] = collections.Counter(bk.launches_by_width)
+    launches = {name: sum(n for (k, _), n in launch_counts["main"].items() if k == name)
+                for name in REPLACES}
     ncorr = len({r.tid for r in recs if r.corrected})
-    reads = [store.get(i) for i in range(store.n_reads)]
-    ident = accuracy_sample(recs, reads, genome, st, sd, ln)
+    ident = accuracy_sample(recs, store.lengths, genome, st, sd, ln)
     print("main " + json.dumps({
         "reads": store.n_reads, "bases": int(store.total_bases),
         "candidates": len(cands), "records": len(recs), "corrected_reads": ncorr,
@@ -257,6 +290,145 @@ def main_path(dev, kernels: dict) -> None:
         raise AssertionError(f"corrected {ncorr} < 97 % of {ref['corrected_reads']}")
     if ident is None or ident < ref["identity"] - 0.5:
         raise AssertionError(f"identity {ident} < {ref['identity']} - 0.5")
+    return {"corrected_reads": ncorr, "identity": ident}
+
+
+def planted_pairs(seed: int = 11, tlen: int = 6000, inserts=RESCUE_INSERTS):
+    """Template read 0 and query reads 1..k, query i a copy of the template at
+    2 % error with a random insertion of inserts[i] bases in the middle, and
+    the candidates (query i on the template, anchored 100 bases in) of
+    tests/test_rescue.py:_pair_with_insert's shape. From band width 128 the
+    ladder crosses 300 bases at W=512, 600 at 2048 and 1000 at 4096 (the
+    plain versions on the CPU), so the rungs 1024, 2048 and 4096 each carry
+    a pair. (Longer insertions are not crossed: the extension clamps
+    |la - lb| to W/4, so crossing n inserted bases costs about 2n - W/4.)"""
+    from necat_tpu.io import simulate
+    from necat_tpu.io.readstore import ReadStore
+    from necat_tpu_torch.overlap.candidates import Candidates
+    rng = np.random.default_rng(seed)
+    em = simulate.ErrorModel(sub=0.02, ins=0.02, dele=0.02)
+    t = rng.integers(0, 4, tlen).astype(np.uint8)
+    qry = []
+    for n in inserts:
+        ins = rng.integers(0, 4, n).astype(np.uint8)
+        qry.append(np.concatenate([simulate.mutate(t[:tlen // 2], em, rng), ins,
+                                   simulate.mutate(t[tlen // 2:], em, rng)]).astype(np.uint8))
+    k = len(inserts)
+    qsize = np.array([len(q) for q in qry], np.int32)
+    cands = Candidates(qid=np.arange(1, k + 1, dtype=np.int32), sid=np.zeros(k, np.int32),
+                       qdir=np.zeros(k, np.int8), score=np.full(k, 100, np.int32),
+                       qbeg=np.full(k, 100, np.int32), qend=qsize - 100,
+                       sbeg=np.full(k, 100, np.int32),
+                       send=np.full(k, tlen - 100, np.int32), qsize=qsize,
+                       ssize=np.full(k, tlen, np.int32))
+    return ReadStore.from_seqs([t] + qry), cands
+
+
+def check_rescue(dev, launch_counts: dict) -> None:
+    """extend_candidates and correct_reads(rescue_long_indels=True) of the
+    planted pairs on each device; identical results."""
+    from necat_tpu.consensus.options import CnsOptions
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.overlapper import extend_candidates
+    rs, cands = planted_pairs()
+    res = {}
+    for d in ("cpu", dev):
+        bk.reset_launches()
+        t0 = time.perf_counter()
+        m4 = extend_candidates(cands, rs, rs, device=d)
+        recs = correct_reads(rs, Candidates.concat([cands, cands.swap_roles()]),
+                             CnsOptions(rescue_long_indels=True), device=d)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launch_counts["rescue"] = collections.Counter(bk.launches_by_width)
+        res[str(d)] = (m4, recs)
+        spans = (m4.qend - m4.qoff).tolist()
+        print(f"rescue on {d}: {time.perf_counter() - t0:.1f} s, M4 query spans "
+              f"{spans} (inserts {list(RESCUE_INSERTS)}), {len(recs)} records, "
+              f"{sum(r.corrected for r in recs)} corrected", flush=True)
+    (m4_a, recs_a), (m4_b, recs_b) = res.values()
+    for f in dataclasses.fields(m4_a):
+        if not np.array_equal(getattr(m4_a, f.name), getattr(m4_b, f.name)):
+            raise AssertionError(f"rescue: M4 field {f.name} differs between devices")
+    _same_records(recs_a, recs_b)
+    if len(m4_a) != len(RESCUE_INSERTS) or \
+            ((m4_a.qend - m4_a.qoff) < m4_a.qsize - 400).any():
+        raise AssertionError("rescue: a planted insertion was not crossed")
+    counts = launch_counts["rescue"]
+    print("rescue: devices identical; launches by width "
+          + json.dumps({f"{k}@{w}": n for (k, w), n in sorted(counts.items())}), flush=True)
+    missing = [(k, w) for k in ("banded_forward", "banded_backtrack_cols") for w in WIDE
+               if not counts.get((k, w))]
+    if missing:
+        raise AssertionError(f"rescue: kernels never launched at {missing}")
+
+
+def check_correct(launch_counts: dict, main_res: dict) -> None:
+    """The CLI's correct command (Project.run_correct) on the bench read set
+    with the config template's options and NUM_ITER=2 (iteration 2 runs the
+    rescue ladder), on "cuda"."""
+    from necat_tpu.io.readstore import ReadStore
+    from necat_tpu.pipeline import config as config_mod
+    from necat_tpu.utils.benchdata import gen_benchmark_reads
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus.correct import CnsRecord
+    from necat_tpu_torch.pipeline import cli
+    genome, store, (st, sd, ln) = gen_benchmark_reads(genome_size=200_000,
+                                                      coverage=20, seed=7)
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    reads = os.path.join(WORK, "reads.fasta")
+    store.to_fasta(reads)
+    with open(os.path.join(WORK, "read_list.txt"), "w") as f:
+        f.write(reads + "\n")
+    cfg_text = config_mod.CONFIG_TEMPLATE.replace(
+        "PROJECT=", f"PROJECT={os.path.join(WORK, 'project')}").replace(
+        "ONT_READ_LIST=", f"ONT_READ_LIST={os.path.join(WORK, 'read_list.txt')}").replace(
+        "GENOME_SIZE=", "GENOME_SIZE=200000").replace(
+        # keep every read (a few simulated from 3 kb intervals come out
+        # shorter), so that read ids stay the bench set's
+        "MIN_READ_LENGTH=3000", "MIN_READ_LENGTH=1000")
+    cfg_path = os.path.join(WORK, "run.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(cfg_text)
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["correct", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch_counts["correct"] = collections.Counter(bk.launches_by_width)
+    if rc != 0:
+        raise AssertionError(f"correct: the command line exited {rc}")
+    ran = {k for (k, _), n in launch_counts["correct"].items() if n}
+    if ran != set(REPLACES):
+        raise AssertionError(f"correct: a kernel of the path never launched: {ran}")
+    cns_dir = os.path.join(WORK, "project", "1-consensus")
+    final = ReadStore.from_fasta(os.path.join(cns_dir, "cns_final.fasta.gz"))
+    with open(os.path.join(cns_dir, "correct.done.json")) as f:
+        iters = json.load(f)["iterations"]
+    recs = []
+    for i in range(final.n_reads):
+        tid, left, right, org = map(int, final.names[i].split("_"))
+        recs.append(CnsRecord(tid=tid, left=left, right=right, org_size=org,
+                              seq=final.get(i), corrected=True))
+    lengths = {r.tid: r.org_size for r in recs}
+    ncorr = len(lengths)
+    ident = accuracy_sample(recs, lengths, genome, st, sd, ln)
+    print("correct " + json.dumps({
+        "iterations": iters, "wall_s": wall,
+        "launches": {f"{k}@{w}": n for (k, w), n in sorted(launch_counts["correct"].items())},
+        "cns_final_reads": final.n_reads, "cns_final_bases": int(final.total_bases),
+        "corrected_reads": ncorr, "identity_pct": ident,
+        "main": main_res}), flush=True)
+    if ncorr < 0.97 * main_res["corrected_reads"]:
+        raise AssertionError(f"correct: {ncorr} reads < 97 % of main's "
+                             f"{main_res['corrected_reads']}")
+    if ident is None or ident < main_res["identity"] - 0.5:
+        raise AssertionError(f"correct: identity {ident} < main's "
+                             f"{main_res['identity']} - 0.5")
 
 
 def main() -> int:
@@ -269,7 +441,16 @@ def main() -> int:
     build()
     kernels = check_kernels(dev)
     check_slice(dev)
-    main_path(dev, kernels)
+    launch_counts = {}
+    main_res = main_path(dev, launch_counts)
+    for W in RUNGS:
+        kernels.update(check_kernels(dev, W=W))
+    check_rescue(dev, launch_counts)
+    check_correct(launch_counts, main_res)
+    for (name, W), entry in kernels.items():
+        by_path = {path: c.get((name, W), 0) for path, c in launch_counts.items()}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

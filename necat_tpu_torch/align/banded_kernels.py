@@ -13,11 +13,13 @@ ctr = W/2 - floor((la - lb) / 2) (the extension clamps |la - lb| <= W/4).
 
 Each wrapper runs its plain PyTorch version (``*_ref``) for tensors on the
 CPU, and launches its CUDA kernel (csrc/banded_kernels.cu) for tensors on a
-CUDA device; it raises for anything else. ``launches`` counts the kernel
-launches of each wrapper.
+CUDA device; it raises for anything else. ``launches_by_width`` counts the
+kernel launches of each (wrapper, W); ``reset_launches`` sets it to 0.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -26,10 +28,15 @@ OP_DIAG, OP_DEL, OP_INS, OP_PAD = 0, 1, 2, 3
 PAD_BASE = 127       # query padding value (never equals a target base 0..3)
 PAD_TARGET = 255     # target padding past b's width
 N_INSB = 7           # inserted bases recorded per insb word and run end
-KERNEL_WIDTHS = (64, 128, 256, 512, 1024)   # band widths the kernels are built for
+# band widths K1 and K3 are built for: a warp per pair up to 1024, a thread
+# block per pair for the rescue ladder's 2048 and 4096 (shapes.MAX_BAND)
+KERNEL_WIDTHS = (64, 128, 256, 512, 1024, 2048, 4096)
 
-launches = {"diag_sub_matrix": 0, "banded_forward": 0,
-            "banded_backtrack_cols": 0}
+launches_by_width: Counter = Counter()       # (wrapper name, W) -> launches
+
+
+def reset_launches() -> None:
+    launches_by_width.clear()
 
 
 def band_centre(W: int, la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
@@ -255,7 +262,7 @@ def diag_sub_matrix(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
     out = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
     _launch("necat_diag_sub_matrix", a.device, a.data_ptr(), L, b.data_ptr(),
             b.shape[1], la.data_ptr(), lb.data_ptr(), out.data_ptr(), PB, MC, W)
-    launches["diag_sub_matrix"] += 1
+    launches_by_width[("diag_sub_matrix", W)] += 1
     return out
 
 
@@ -272,7 +279,7 @@ def banded_forward(enc, la, lb, W: int):
     cost = torch.empty((PB,), dtype=torch.int32, device=enc.device)
     _launch("necat_banded_forward", enc.device, enc.data_ptr(), la.data_ptr(),
             lb.data_ptr(), dirs.data_ptr(), cost.data_ptr(), PB, MC, W)
-    launches["banded_forward"] += 1
+    launches_by_width[("banded_forward", W)] += 1
     return dirs, cost
 
 
@@ -293,5 +300,5 @@ def banded_backtrack_cols(dirs, la, lb, W: int, words: int = 1):
     _launch("necat_banded_backtrack", dirs.device, dirs.data_ptr(), la.data_ptr(),
             lb.data_ptr(), cols.data_ptr(), insb.data_ptr(), lead.data_ptr(),
             PB, MC, W, words)
-    launches["banded_backtrack_cols"] += 1
+    launches_by_width[("banded_backtrack_cols", W)] += 1
     return cols, tuple(insb), lead

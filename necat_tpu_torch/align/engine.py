@@ -22,6 +22,14 @@ from necat_tpu_torch.io.devstore import gather_rows
 DESC_COLS = ("qg", "qglen", "qrc", "tg", "tglen", "qlen", "tlen", "aq", "at")
 
 
+def rescue_widths(band_width: int, scale: int, max_scale: int):
+    """The long-indel rescue ladder's band widths: band_width * scale,
+    doubling, up to max_scale and shapes.MAX_BAND (read at call time)."""
+    while scale <= max_scale and band_width * scale <= shapes.MAX_BAND:
+        yield band_width * scale
+        scale *= 2
+
+
 def gather_extend(qdev, sdev, desc: torch.Tensor, W: int, L: int,
                   tail_match: int = TAIL_MATCH, insb_words: int = 1) -> dict:
     """Gather one chunk's pair rows from the packed stores and extend them.
@@ -58,6 +66,11 @@ class ExtChunk:
         if self._stats is None:
             self._stats = self.out["stats"].cpu().numpy()
         return self._stats
+
+    def release(self) -> None:
+        """Drop the device outputs (the per-column buffers) once the stats
+        are read."""
+        self.out = {}
 
 
 def collect_stats(chunks: List[ExtChunk], stats: dict, base_ci: int = 0) -> None:

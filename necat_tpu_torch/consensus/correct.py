@@ -6,12 +6,16 @@ order; per supergroup, the reference's per-template wave loop
 (consensus_one_read.c:317-372) runs as host-side selection over a coverage
 mirror, every chunk of a wave runs gather -> extend -> accept -> scatter on
 the device (consensus/fused.py), and the consensus of each bucket comes back
-as one packed int32 per template column.
+as one packed int32 per template column. With rescue_long_indels, pairs
+whose extension stops > 200 bp short of the candidate climb a band-doubling
+ladder (W0 * rescue_band_scale, doubling up to rescue_band_max_scale and
+shapes.MAX_BAND).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List
 
 import numpy as np
@@ -21,7 +25,7 @@ from necat_tpu.consensus.options import CnsOptions
 from necat_tpu.io.readstore import ReadStore
 from necat_tpu.utils import shapes
 from necat_tpu_torch.align.banded_kernels import N_INSB
-from necat_tpu_torch.align.engine import ExtendEngine
+from necat_tpu_torch.align.engine import ExtendEngine, rescue_widths
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.backbone import compact_from_packed, consensus_packed
 from necat_tpu_torch.io.devstore import DeviceReadStore
@@ -66,7 +70,6 @@ def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
     others rather than run something else."""
     unsupported = {
         "more than one device": isinstance(device, (list, tuple)),
-        "rescue_long_indels": opts.rescue_long_indels,
         "small_memory": opts.small_memory or store.total_bases >= (1 << 31),
         "fused=False": opts.fused is False,
         "3*max_delta > 30 (stream consensus)": 3 * opts.max_delta > 30,
@@ -225,12 +228,75 @@ def _insb_words(opts: CnsOptions) -> int:
     return min(max(-(-max(opts.max_delta - 1, 1) // N_INSB), 1), 3)
 
 
+def _rungs(opts: CnsOptions):
+    return rescue_widths(opts.band_width, opts.rescue_band_scale,
+                         opts.rescue_band_max_scale)
+
+
+def _hang(stats, cands, p_ci):
+    """Query bases of each pair's candidate range left unaligned."""
+    return (np.maximum(stats["qoff"] - cands.qbeg[p_ci], 0)
+            + np.maximum(cands.qend[p_ci] - stats["qend"], 0))
+
+
+def _ident_ladder(run, ident_chunks, npairs, cands, p_ci, slots,
+                  opts: CnsOptions) -> np.ndarray:
+    """Round-0 rescue: lanes of the ident pass that hang re-run the ident
+    pass on the rungs (cols_guard keeps each lane's best rung in the ident
+    buffer). Returns the band each lane scatters at: its best rung."""
+    fused.release_bufs(ident_chunks)
+    s0 = fused.new_fused_stats(npairs)
+    fused.collect_fused(ident_chunks, s0)
+    lane_w = np.full(npairs, opts.band_width, np.int64)
+    best_c = s0["n_cols"].copy()
+    bad = np.flatnonzero(_hang(s0, cands, p_ci) > 200)
+    for Wx in _rungs(opts):
+        if not len(bad):
+            break
+        wch = run(bad, W=Wx, slots=slots[bad], nc0=best_c[bad], cols_guard=True)
+        fused.release_bufs(wch)
+        s1 = fused.new_fused_stats(npairs)
+        fused.collect_fused(wch, s1, sel=bad)
+        imp = s1["n_cols"][bad] >= best_c[bad]
+        lane_w[bad[imp]] = Wx
+        best_c[bad] = np.maximum(best_c[bad], s1["n_cols"][bad])
+        h1 = _hang(s1, cands, p_ci)[bad]
+        bad = bad[(h1 > 200) | ~imp]     # a rung counts only if it kept the result
+    return lane_w
+
+
+def _defer_ladder(run, stats, cands, p_ci, opts: CnsOptions) -> None:
+    """Rounds > 0: deferred lanes climb the rungs with the hang check and the
+    best-cols guard (the last rung defers no more); lanes still deferred
+    after the ladder replay at their best band."""
+    npairs = len(p_ci)
+    di = np.flatnonzero(stats["deferred"])
+    best_w = np.full(npairs, opts.band_width, np.int64)
+    best_c = stats["n_cols"].copy()
+    rungs = list(_rungs(opts))
+    for r, Wx in enumerate(rungs):
+        if not len(di):
+            break
+        ch = run(di, W=Wx, qend_cand=cands.qend[p_ci[di]].astype(np.int64),
+                 nc0=best_c[di], cols_guard=True,
+                 rescue_defer=r + 1 < len(rungs))
+        prev_c = best_c[di].copy()
+        fused.collect_fused(ch, stats, sel=di)
+        new_c = stats["n_cols"][di]
+        best_w[di[new_c >= prev_c]] = Wx
+        best_c[di] = np.maximum(new_c, prev_c)
+        di = di[stats["deferred"][di]]
+    for Wx in np.unique(best_w[di]):
+        sel_w = di[best_w[di] == Wx]
+        fused.collect_fused(run(sel_w, W=int(Wx)), stats, sel=sel_w)
+
+
 def _run_waves(engine, cands, buckets, opts: CnsOptions, st: _SelState) -> None:
     """Waves until no template has pending candidates: round 0 estimates the
     identity cutoffs (unless fixed) and scatters from the ident pass's
     retained buffers; later rounds extend, accept and scatter in one step.
-    The only host syncs are the per-chunk stats that feed the coverage
-    mirror."""
+    Without rescue the only host syncs are the per-chunk stats that feed the
+    coverage mirror; the rescue ladder reads each rung's stats."""
     TB = opts.templates_per_batch
     dev = engine.device
     estimating = not opts.use_fixed_ident_cutoff
@@ -239,6 +305,8 @@ def _run_waves(engine, cands, buckets, opts: CnsOptions, st: _SelState) -> None:
                for bi in range(len(buckets))}
     tensors = {bi: (b.weights, b.covten) for bi, b in enumerate(buckets)}
     insb_words = _insb_words(opts)
+    rescue = opts.rescue_long_indels
+    W0 = opts.band_width
     round_id = 0 if estimating else 1        # consensus_one_read.c:273-278
     max_rounds = -(-opts.max_examined // opts.wave_size) + 1
     offsets = engine.qdev.offsets
@@ -260,23 +328,45 @@ def _run_waves(engine, cands, buckets, opts: CnsOptions, st: _SelState) -> None:
                     insb_words=insb_words, min_align_size=opts.min_align_size,
                     mapping_ratio=opts.mapping_ratio,
                     good_end_margin=opts.good_end_margin,
-                    W=opts.band_width, cutoffs=cutoffs, tensors=tensors)
-        stats = fused.new_fused_stats(len(p_ci))
+                    cutoffs=cutoffs, tensors=tensors,
+                    allow_fullcov=round_id > 0)
+
+        def run(idx, base=base, **kw):
+            """dispatch_wave over the pairs idx of this wave."""
+            d = {k: (v[idx] if isinstance(v, np.ndarray) else v)
+                 for k, v in base.items()}
+            return fused.dispatch_wave(engine, **d, **kw)
+
+        npairs = len(p_ci)
+        stats = fused.new_fused_stats(npairs)
         if round_id == 0:
             if wave > fused.IDENT_SLOTS:
                 raise ValueError("n_ident + 10 must fit fused.IDENT_SLOTS")
             ibufs = {bi: torch.zeros((TB + 1, fused.IDENT_SLOTS, 3),
                                      dtype=torch.float32, device=dev)
                      for bi in sorted({int(g) for g in base["groups"]})}
-            chunks = fused.dispatch_wave(engine, **base, allow_fullcov=False,
-                                         slots=slots, ibufs=ibufs)
+            chunks = fused.dispatch_wave(engine, **base, W=W0, slots=slots,
+                                         ibufs=ibufs)
+            run0 = functools.partial(run, ibufs=ibufs)
+            lane_w = (_ident_ladder(run0, chunks, npairs, cands, p_ci, slots,
+                                    opts) if rescue else None)
             for bi, ib in ibufs.items():
                 cutoffs[bi] = fused.cutoff_from_idents(ib, n_ident=opts.n_ident)
-            fused.scatter_round0(chunks, cutoffs, tensors, opts.min_align_size,
-                                 opts.mapping_ratio)
+            if lane_w is None:
+                fused.scatter_round0(chunks, cutoffs, tensors, opts.min_align_size,
+                                     opts.mapping_ratio)
+                fused.collect_fused(chunks, stats)
+            else:        # the band of each lane is decided: scatter at it
+                for Wx in np.unique(lane_w):
+                    idx = np.flatnonzero(lane_w == Wx)
+                    fused.collect_fused(run(idx, W=int(Wx)), stats, sel=idx)
         else:
-            chunks = fused.dispatch_wave(engine, **base, allow_fullcov=True)
-        fused.collect_fused(chunks, stats)
+            chunks = fused.dispatch_wave(
+                engine, **base, W=W0, rescue_defer=rescue,
+                qend_cand=cands.qend[p_ci].astype(np.int64))
+            fused.collect_fused(chunks, stats)
+            if rescue:
+                _defer_ladder(run, stats, cands, p_ci, opts)
         acc = np.flatnonzero(stats["ok"])
         _apply_cov(st, p_tpl[acc], stats["toff"][acc], stats["tend"][acc])
         round_id += 1

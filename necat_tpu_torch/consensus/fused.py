@@ -1,12 +1,20 @@
 """Correction chunks: gather -> extend -> accept -> scatter on the device.
 
-Counterpart of necat_tpu/consensus/fused.py without the long-indel rescue.
-One chunk runs the row gather, the banded extension, the acceptance test
-(identity cutoff / mapping range / full-coverage exception) and the weighted
-tag scatter into the bucket's consensus tensors, and returns a small int32
-stats array. The adaptive identity cutoff (error_estimate.c:32-64) is kept on
-the device too: a round-0 identity pass writes per-template (ident, good,
-span) triples into a small buffer that cutoff_from_idents reduces.
+Counterpart of necat_tpu/consensus/fused.py. One chunk runs the row gather,
+the banded extension, the acceptance test (identity cutoff / mapping range /
+full-coverage exception) and the weighted tag scatter into the bucket's
+consensus tensors, and returns a small int32 stats array. The adaptive
+identity cutoff (error_estimate.c:32-64) is kept on the device too: a round-0
+identity pass writes per-template (ident, good, span) triples into a small
+buffer that cutoff_from_idents reduces.
+
+The long-indel rescue (cns_extension cascade, consensus_aux.c:152-213) works
+by deferral: with `rescue_defer`, lanes whose extension leaves > 200 bp of
+the candidate's query range unaligned scatter nothing and raise the
+`deferred` stats flag; correct_reads re-dispatches them at a wider band with
+`cols_guard` (a lane counts only if the wide result aligns at least the
+columns of its best earlier rung, `nc0`), and replays the lanes still
+deferred at their best band.
 
 Acceptance mirrors consensus_one_read.c:215-392 + consensus_aux.c:93-122.
 Where the JAX package donates the consensus tensors and the ident buffer to
@@ -14,6 +22,8 @@ its programs, these functions update the same tensors in place.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -27,10 +37,16 @@ from necat_tpu_torch.consensus.tags import scatter_chunk
 #   tsfull — full template length (the other lengths are window lengths)
 #   ws     — window start on the template (absolute)
 #   slot   — round-0 ident-buffer slot (sequential per template)
-FUSED_EXTRA = ("row", "tsfull", "ws", "slot")
+#   qe     — candidate query end (the rescue hang check)
+#   nc0    — best earlier column count (the rescue cols_guard)
+FUSED_EXTRA = ("row", "tsfull", "ws", "slot", "qe", "nc0")
 _C = {k: i for i, k in enumerate(DESC_COLS + FUSED_EXTRA)}
 
 IDENT_SLOTS = 32        # round-0 ident buffer slots per template (>= n_ident+10)
+
+# pairs dispatch_wave ran at each band width W; the correct stage clears it
+# before each iteration and records it after
+pairs_by_band: Counter = Counter()
 
 _BUF_KEYS = ("left_cols", "left_insb", "left_lead", "left_leadb", "left_jc",
              "right_cols", "right_insb", "right_lead", "right_leadb",
@@ -88,10 +104,13 @@ def _chunk_bufs(out) -> dict:
 
 
 def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
-                        min_align_size, mapping_ratio, allow_fullcov):
-    """Acceptance of one chunk + tag scatter of its accepted lanes; returns
-    the stats int32[7, PB] = qoff, qend, toff, tend (window), n_cols,
-    n_match, accepted."""
+                        min_align_size, mapping_ratio, allow_fullcov,
+                        deferred=None):
+    """Acceptance of one chunk + tag scatter of its accepted lanes (deferred
+    lanes are not accepted); returns the stats int32[8, PB] = qoff, qend,
+    toff, tend (window), n_cols, n_match, accepted, deferred."""
+    if deferred is None:
+        deferred = torch.zeros_like(stats6[0], dtype=torch.bool)
     TB = weights.shape[0] - 1
     ql, qr = stats6[0], stats6[1]
     tl = stats6[2] + c["ws"]
@@ -105,6 +124,7 @@ def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
         pass_ident |= is_full_cov_ovlp(ql, qr, qs, tl, tr, ts, 5000, 100)
     ok &= pass_ident
     ok &= (c["row"] >= 0) & (c["row"] < TB)
+    ok &= ~deferred
     w = torch.where(ok, calc_cns_weight(ident), 0.0)
     row_eff = torch.where(ok, c["row"], TB)
     scatter_chunk(weights, coverage,
@@ -113,29 +133,39 @@ def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
                   bufs["right_cols"], bufs["right_insb"], bufs["right_lead"],
                   bufs["right_leadb"], bufs["right_jc"],
                   c["at"] + c["ws"], row_eff, w, ts)
-    return torch.cat([stats6, ok.to(torch.int32)[None]], dim=0)
+    return torch.cat([stats6, ok.to(torch.int32)[None],
+                      deferred.to(torch.int32)[None]], dim=0)
 
 
 def extend_scatter(qdev, sdev, desc, cutoff, weights, coverage, *,
                    min_align_size: int, mapping_ratio: float,
                    allow_fullcov: bool, W: int, L: int,
+                   rescue_defer: bool = False, cols_guard: bool = False,
                    tail_match: int = TAIL_MATCH, insb_words: int = 1):
     """One correction chunk: extend, accept against the device cutoffs
-    f32[TB+1], scatter into weights/coverage in place. desc: int32[PB, 13]
-    (DESC_COLS + FUSED_EXTRA) on the device. Returns stats int32[7, PB]."""
+    f32[TB+1], scatter into weights/coverage in place. desc: int32[PB, 15]
+    (DESC_COLS + FUSED_EXTRA) on the device. Returns stats int32[8, PB];
+    deferred lanes (see the module docstring) scatter nothing."""
     c, out = _extend(qdev, sdev, desc, W, L, tail_match, insb_words)
+    ql, qr, n_cols = out["qoff"], out["qend"], out["n_cols"]
+    hang = (ql - c["aq"]).clamp(min=0) + (c["qe"] - qr).clamp(min=0)
+    live = c["row"] >= 0
+    deferred = (rescue_defer & (hang > 200) & live) \
+        | (cols_guard & (n_cols < c["nc0"]) & live)
     return _accept_and_scatter(c, out["stats"], out["ident"], cutoff, weights,
                                coverage, _chunk_bufs(out), min_align_size,
-                               mapping_ratio, allow_fullcov)
+                               mapping_ratio, allow_fullcov, deferred)
 
 
 def ident_pass(qdev, sdev, desc, ibuf, *, min_align_size: int,
-               good_end_margin: int, W: int, L: int,
+               good_end_margin: int, W: int, L: int, cols_guard: bool = False,
                tail_match: int = TAIL_MATCH):
     """Round-0 identity estimation: extend and write per-template (ident,
     good, span) into ibuf f32[TB+1, IDENT_SLOTS, 3] at (row, slot), in place.
-    Returns (stats int32[6, PB], the chunk's per-column buffers), which
-    accept_scatter consumes once the cutoffs are known."""
+    With cols_guard a lane writes its slot only when it aligned at least nc0
+    columns (a rescue rung keeps the better earlier entry). Returns (stats
+    int32[6, PB], the chunk's per-column buffers), which accept_scatter
+    consumes once the cutoffs are known."""
     c, out = _extend(qdev, sdev, desc, W, L, tail_match, 1)
     TBp1, S, _ = ibuf.shape
     ql, qr = out["qoff"], out["qend"]
@@ -147,6 +177,8 @@ def ident_pass(qdev, sdev, desc, ibuf, *, min_align_size: int,
     span = (((qr - ql) >= 0.6 * qs) | ((tr - tl) >= 0.6 * ts)) & ok_align
     valid = (c["row"] >= 0) & (c["row"] < TBp1 - 1) & (c["slot"] >= 0) \
         & (c["slot"] < S)
+    if cols_guard:
+        valid &= out["n_cols"] >= c["nc0"]
     # invalid lanes all write zeros to the trash entry (TB, S-1)
     row = torch.where(valid, c["row"], TBp1 - 1).long()
     slot = torch.where(valid, c["slot"], S - 1).long()
@@ -159,7 +191,7 @@ def accept_scatter(desc, stats6, cutoff, weights, coverage, bufs, *,
                    min_align_size: int, mapping_ratio: float):
     """Round-0 acceptance + tag scatter of an ident_pass chunk's retained
     buffers (no re-extension; the full-coverage exception is off in round
-    0, consensus_one_read.c:273-278). Returns stats int32[7, PB]."""
+    0, consensus_one_read.c:273-278). Returns stats int32[8, PB]."""
     c = {k: desc[:, i] for k, i in _C.items()}
     n_cols, n_match = stats6[4], stats6[5]
     ident = torch.where(n_cols > 0, 100.0 * n_match / n_cols.clamp(min=1), 0.0)
@@ -219,6 +251,8 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
                   W: int, insb_words: int, min_align_size: int,
                   mapping_ratio: float, allow_fullcov: bool,
                   slots=None, ibufs: dict | None = None,
+                  qend_cand=None, nc0=None,
+                  rescue_defer: bool = False, cols_guard: bool = False,
                   good_end_margin: int = 200,
                   tail_match: int = TAIL_MATCH):
     """Run one wave of pairs as chunks of `engine` (an ExtendEngine).
@@ -226,13 +260,18 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
     cutoffs: group -> f32[TB+1] device cutoffs; tensors: group -> (weights,
     coverage), updated in place. With ibufs (round 0) only the ident pass
     runs, writing ibufs[group] in place; `slots` (sequential per-template
-    ident slots) is then required. Returns the list of FusedChunk."""
+    ident slots) is then required. qend_cand (candidate query ends) feeds
+    the rescue_defer hang check, nc0 (best earlier column counts) the
+    cols_guard. Returns the list of FusedChunk."""
     npairs = len(qids)
+    pairs_by_band[W] += npairs
     if ibufs is not None and slots is None:
         raise ValueError("dispatch_wave(ibufs=...) requires per-pair slots")
     zeros = np.zeros(npairs, np.int64)
     extra = dict(row=rows, tsfull=tsize_full, ws=zeros,
-                 slot=(slots if slots is not None else zeros))
+                 slot=(slots if slots is not None else zeros),
+                 qe=(qend_cand if qend_cand is not None else zeros),
+                 nc0=(nc0 if nc0 is not None else zeros))
     planned = engine.plan(qids, qdir, qsize, tg_base, tsize_full, aq, at_abs, W,
                           groups=groups, extra_cols=extra)
     chunks = []
@@ -246,13 +285,14 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
             stats, bufs = ident_pass(
                 engine.qdev, engine.sdev, desc_dev, ibufs[g],
                 min_align_size=min_align_size, good_end_margin=good_end_margin,
-                W=W, L=p["L"], tail_match=tail_match)
+                W=W, L=p["L"], cols_guard=cols_guard, tail_match=tail_match)
         else:
             wts, cov = tensors[g]
             stats = extend_scatter(
                 engine.qdev, engine.sdev, desc_dev, cutoffs[g], wts, cov,
                 min_align_size=min_align_size, mapping_ratio=mapping_ratio,
                 allow_fullcov=allow_fullcov, W=W, L=p["L"],
+                rescue_defer=rescue_defer, cols_guard=cols_guard,
                 tail_match=tail_match, insb_words=insb_words)
         chunks.append(FusedChunk(stats, p["take"], p["n_real"], p["ws"], g,
                                  bufs=bufs, desc_dev=desc_dev))
@@ -262,7 +302,7 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
 def scatter_round0(chunks, cutoffs: dict, tensors: dict, min_align_size: int,
                    mapping_ratio: float) -> None:
     """Scatter round-0 ident chunks from their retained buffers once the
-    device cutoffs exist; replaces each chunk's stats with the 7-row form."""
+    device cutoffs exist; replaces each chunk's stats with the 8-row form."""
     for ch in chunks:
         wts, cov = tensors[ch.group]
         ch.stats_dev = accept_scatter(
@@ -272,21 +312,31 @@ def scatter_round0(chunks, cutoffs: dict, tensors: dict, min_align_size: int,
         ch.desc_dev = None
 
 
+def release_bufs(chunks) -> None:
+    """Drop ident chunks' retained buffers (the rescue path re-extends
+    instead of scattering them)."""
+    for ch in chunks:
+        ch.bufs = None
+        ch.desc_dev = None
+
+
 def new_fused_stats(n_pairs: int) -> dict:
     out = {k: np.zeros(n_pairs, np.int64)
            for k in ("qoff", "qend", "toff", "tend", "n_cols")}
     out["ident"] = np.zeros(n_pairs, np.float64)
     out["ok"] = np.zeros(n_pairs, bool)
+    out["deferred"] = np.zeros(n_pairs, bool)
     return out
 
 
-def collect_fused(chunks, stats: dict) -> None:
+def collect_fused(chunks, stats: dict, sel=None) -> None:
     """Merge chunk stats into flat per-pair host arrays (one device sync per
-    chunk; toff/tend converted to absolute template coordinates)."""
+    chunk; toff/tend converted to absolute template coordinates). `sel` maps
+    the chunks' pair ids into the caller's (a rescue subset's pairs)."""
     for ch in chunks:
         st = ch.stats_dev.cpu().numpy()
         r = slice(0, ch.n_real)
-        idx = ch.sel
+        idx = ch.sel if sel is None else np.asarray(sel)[ch.sel]
         stats["qoff"][idx] = st[0, r]
         stats["qend"][idx] = st[1, r]
         stats["toff"][idx] = st[2, r] + ch.ws
@@ -296,3 +346,4 @@ def collect_fused(chunks, stats: dict) -> None:
             st[4, r] > 0, 100.0 * st[5, r] / np.maximum(st[4, r], 1), 0.0)
         if st.shape[0] > 6:          # ident-pass chunks carry only 6 rows
             stats["ok"][idx] = st[6, r].astype(bool)
+            stats["deferred"][idx] = st[7, r].astype(bool)

@@ -1,5 +1,7 @@
-"""Candidate detection over whole read sets (counterpart of
-necat_tpu/overlap/overlapper.py:find_all_candidates on one device)."""
+"""Read sets -> candidates -> extended M4 overlaps, on one device
+(counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates and
+extend_candidates with its long-indel rescue ladder, which the JAX
+package's callers all leave on at its default scales)."""
 
 from __future__ import annotations
 
@@ -9,8 +11,11 @@ import numpy as np
 import torch
 
 from necat_tpu.io.readstore import ReadStore
+from necat_tpu.overlap.m4 import M4Records
 from necat_tpu.overlap.options import MapOptions
 from necat_tpu.utils import shapes
+from necat_tpu_torch.align.engine import (ExtendEngine, collect_stats, new_stats,
+                                          rescue_widths)
 from necat_tpu_torch.index.kmer_index import KmerIndex
 from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.overlap.candidates import (Candidates, candidates_forward,
@@ -60,3 +65,90 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
             parts.append(stats_to_candidates(st.cpu().numpy(), qidx.astype(np.int32),
                                              lens, qdir, sub_sizes, 0, opts))
     return top_n_per_query(Candidates.concat(parts), opts.ncan)
+
+
+# bytes of per-column buffers a slice of extension chunks may hold (about 20
+# bytes per pair and tier column): slices bound the device memory of a pass
+EXT_SLICE_BYTES = 2 << 30
+
+
+def _extend_subset(cands: Candidates, engine: ExtendEngine, idxs: np.ndarray,
+                   band_width: int, out: dict) -> None:
+    """Extend the candidates idxs at band width band_width into the per-pair
+    arrays of `out` (from new_stats, indexed by candidate row). Chunks are
+    submitted a slice of at most 8192 pairs at a time; a slice's stats are
+    read, and its buffers dropped, once the next slice is submitted."""
+    slice_pairs = 8192
+    if len(idxs):
+        L_est = shapes.length_tier(
+            min(int(cands.qsize[idxs].max()) * 14 // 10 + 600, 1 << 18))
+        slice_pairs = max(512, min(slice_pairs, EXT_SLICE_BYTES // (20 * L_est)))
+
+    def submit(sel):
+        return engine.submit(
+            sel=sel, qids=cands.qid[sel], qdir=cands.qdir[sel].astype(np.int32),
+            qsize=cands.qsize[sel].astype(np.int64),
+            tg_base=engine.sdev.offsets[cands.sid[sel]],
+            tsize=cands.ssize[sel].astype(np.int64),
+            aq=cands.qbeg[sel].astype(np.int64),
+            at_abs=cands.sbeg[sel].astype(np.int64), W=band_width)
+
+    pending = []
+    for s0 in range(0, len(idxs), slice_pairs):
+        chunks = submit(idxs[s0:s0 + slice_pairs])
+        collect_stats(pending, out)
+        for ch in pending:
+            ch.release()
+        pending = chunks
+    collect_stats(pending, out)
+    for ch in pending:
+        ch.release()
+
+
+def rescue_hangs(cands: Candidates, idxs: np.ndarray, qoff: np.ndarray,
+                 qend: np.ndarray) -> np.ndarray:
+    """Candidates whose aligned query range fell short of the chain-predicted
+    range by > 200 bp in all: the cns_extension long-indel rescue trigger
+    (consensus_aux.c:152-157)."""
+    lhang = np.maximum(qoff[idxs] - cands.qbeg[idxs], 0)
+    rhang = np.maximum(cands.qend[idxs] - qend[idxs], 0)
+    return idxs[(lhang + rhang) > 200]
+
+
+def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *,
+                      device, min_align_size: int = 400, min_ident: float = 0.0,
+                      band_width: int = 128) -> M4Records:
+    """Banded-extend candidates into M4 records (end points and identity), on
+    `device`.
+
+    Pairs whose alignment stopped > 200 bp short of the chain-predicted query
+    range are extended again with doubled bands (band_width * 4, then x2 each
+    rung, up to band_width * 32 and shapes.MAX_BAND) until they reach it: the
+    stand-in for the reference's DALIGNER rescue (consensus_aux.c:123-215).
+    A rung's result is kept only where it aligned at least as many columns
+    as the best so far (consensus_aux.c:203-213)."""
+    dev = resolve_device(device)
+    n = len(cands)
+    out = new_stats(n)
+    qdev = DeviceReadStore(qstore, dev)
+    sdev = qdev if sstore is qstore else DeviceReadStore(sstore, dev)
+    engine = ExtendEngine(qdev, sdev)
+    _extend_subset(cands, engine, np.arange(n), band_width, out)
+    bad = rescue_hangs(cands, np.arange(n), out["qoff"], out["qend"])
+    for Wx in rescue_widths(band_width, 4, 32):
+        if not len(bad):
+            break
+        prev = {k: out[k][bad].copy() for k in out if k != "lane"}
+        _extend_subset(cands, engine, bad, Wx, out)
+        worse = out["n_cols"][bad] < prev["n_cols"]
+        for k in prev:
+            out[k][bad[worse]] = prev[k][worse]
+        bad = rescue_hangs(cands, bad, out["qoff"], out["qend"])
+    ki = np.flatnonzero((out["n_cols"] >= min_align_size) & (out["ident"] >= min_ident))
+    return M4Records(
+        qid=cands.qid[ki], sid=cands.sid[ki],
+        ident=out["ident"][ki].astype(np.float32), vscore=cands.score[ki],
+        qdir=cands.qdir[ki], qoff=out["qoff"][ki].astype(np.int32),
+        qend=out["qend"][ki].astype(np.int32), qsize=cands.qsize[ki],
+        sdir=np.zeros(len(ki), np.int8), soff=out["toff"][ki].astype(np.int32),
+        send=out["tend"][ki].astype(np.int32), ssize=cands.ssize[ki])

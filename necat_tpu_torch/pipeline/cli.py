@@ -1,0 +1,48 @@
+"""Command line of the PyTorch port (necat.pl commands; correct only so far).
+
+  python -m necat_tpu_torch.pipeline.cli config  <cfg>                       # config template
+  python -m necat_tpu_torch.pipeline.cli correct <cfg> --device {cuda,cpu}   # correct raw reads
+
+`--device` has no default: "cuda" runs the CUDA kernels, "cpu" their plain
+PyTorch versions. `assemble` and `bridge` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from necat_tpu.pipeline import config as config_mod
+from necat_tpu.utils.logging import logger
+from necat_tpu_torch.pipeline.stages import Project
+
+NOT_PORTED = ("assemble", "bridge")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m necat_tpu_torch.pipeline.cli",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("command", choices=("config", "correct") + NOT_PORTED)
+    ap.add_argument("cfg")
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    help="required for correct: where the kernels run")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.command in NOT_PORTED:
+        print(f"{args.command}: not ported to necat_tpu_torch yet "
+              "(use python -m necat_tpu.pipeline.cli)", file=sys.stderr)
+        return 2
+    if args.command == "config":
+        config_mod.write_template(args.cfg)
+        print(f"wrote config template to {args.cfg}")
+        return 0
+    if args.device is None:
+        ap.error("correct needs --device cuda or --device cpu")
+    cfg = config_mod.load_config(args.cfg)
+    out = Project(cfg, cfg.project).run_correct(device=args.device)
+    logger.info("final output: %s", out)
+    print(out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

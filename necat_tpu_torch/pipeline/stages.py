@@ -1,0 +1,197 @@
+"""Pipeline stages with resume (counterpart of necat_tpu/pipeline/stages.py;
+the correct stage only, on one device).
+
+Each stage writes its outputs and a `<name>.done.json` manifest (input
+fingerprints and the parameters it ran with); a stage runs again only when
+an input or a parameter changed or an output is missing, the reference's
+skip rule (Plgd/Project.pm:131-177). Directories follow necat.pl's project
+layout (1-consensus, ...).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from necat_tpu.consensus.options import CnsOptions
+from necat_tpu.io.readstore import ReadStore
+from necat_tpu.overlap.options import MapOptions
+from necat_tpu.pipeline.config import Config
+from necat_tpu.utils.logging import logger
+from necat_tpu_torch.consensus import fused
+from necat_tpu_torch.consensus.correct import correct_reads
+from necat_tpu_torch.overlap.candidates import Candidates
+from necat_tpu_torch.overlap.overlapper import find_all_candidates
+
+
+def _fingerprint(paths: List[str]) -> str:
+    h = hashlib.sha256()
+    for p in paths:
+        st = os.stat(p)
+        h.update(f"{p}:{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()[:16]
+
+
+def _stage(workdir: str, name: str, ifiles: List[str], ofiles: List[str],
+           params: dict, fn: Callable[[], Optional[dict]]) -> bool:
+    """Run fn unless its outputs are up to date; True if it ran. The manifest
+    is written only after fn returns, with the fields of the dict fn returns
+    (if any) added."""
+    os.makedirs(workdir, exist_ok=True)
+    done_path = os.path.join(workdir, f"{name}.done.json")
+    fp = _fingerprint(ifiles)
+    pjson = json.dumps(params, sort_keys=True, default=str)
+    if os.path.exists(done_path) and all(os.path.exists(o) for o in ofiles):
+        try:
+            with open(done_path) as f:
+                d = json.load(f)
+        except (OSError, ValueError):
+            d = {}
+        if d.get("input_fp") == fp and d.get("params") == pjson and d.get("rc") == 0:
+            logger.info("stage %s: up to date, skipping", name)
+            return False
+    logger.info("stage %s: running", name)
+    t0 = time.time()
+    report = fn() or {}
+    with open(done_path, "w") as f:
+        json.dump({"input_fp": fp, "params": pjson, "rc": 0,
+                   "wall_s": round(time.time() - t0, 1), **report}, f)
+    logger.info("stage %s: done in %.1fs", name, time.time() - t0)
+    return True
+
+
+def _read_input_list(cfg: Config) -> List[str]:
+    with open(cfg.read_list) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def load_raw_reads(cfg: Config, keep_coverage: float = 0.0) -> ReadStore:
+    """The input read set. With keep_coverage > 0 and a genome size, only the
+    longest reads up to keep_coverage x genome size are kept, selected in two
+    passes (lengths first, then each file's kept reads) so that memory holds
+    the kept set and one input file."""
+    paths = _read_input_list(cfg)
+    if keep_coverage <= 0 or cfg.genome_size <= 0:
+        return ReadStore.concat(
+            [ReadStore.from_fasta(p, min_length=cfg.min_read_length) for p in paths])
+    lens_per_file = [ReadStore.from_fasta(p, min_length=cfg.min_read_length).lengths
+                     for p in paths]
+    all_lens = np.concatenate(lens_per_file)
+    target = int(cfg.genome_size * keep_coverage)
+    order = np.argsort(all_lens, kind="stable")[::-1]
+    csum = np.cumsum(all_lens[order])
+    n_keep = min(int(np.searchsorted(csum, target)) + 1, len(all_lens))
+    keep = np.sort(order[:n_keep])
+    parts = []
+    base = 0
+    for p, fl in zip(paths, lens_per_file):
+        sel = keep[(keep >= base) & (keep < base + len(fl))] - base
+        st = ReadStore.from_fasta(p, min_length=cfg.min_read_length)
+        parts.append(st.subset(sel) if len(sel) != st.n_reads else st)
+        base += len(fl)
+    return ReadStore.concat(parts)
+
+
+def _check_supported(cfg: Config, store: ReadStore) -> None:
+    """One host, one read volume: refuse the rest rather than run something
+    else."""
+    unsupported = {
+        "more than one host (NECAT_TPU_NUM_PROCS > 1)":
+            int(os.environ.get("NECAT_TPU_NUM_PROCS", "1") or 1) > 1,
+        "VOL_SIZE (volume tiling)": float(cfg.get("VOL_SIZE", "0") or 0) > 0,
+        ">= 2^31 bases (volume tiling)": store.total_bases >= (1 << 31),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(f"necat_tpu_torch run_correct: {', '.join(bad)} "
+                                  "not ported")
+
+
+@dataclasses.dataclass
+class Project:
+    cfg: Config
+    root: str
+
+    def __post_init__(self):
+        os.makedirs(self.root, exist_ok=True)
+
+    def path(self, *parts) -> str:
+        return os.path.join(self.root, *parts)
+
+    def run_correct(self, *, device) -> str:
+        """necat.pl correct (runConsensus) on `device`; returns the path of
+        1-consensus/cns_final.fasta.gz.
+
+        NUM_ITER iterations: the first maps with the sensitive options and
+        corrects with -r 0, the later ones map fast and correct with -r 1
+        (the long-indel rescue ladder); every iteration but the last keeps
+        reads whole (-f 1). The last keeps corrected pieces only, then the
+        longest of them up to CNS_OUTPUT_COVERAGE.
+
+        The manifest 1-consensus/correct.done.json records, per iteration,
+        the seconds of the candidate search and of the correction (both
+        return host arrays, so their device work is inside the span) and
+        the pairs dispatched at each band width."""
+        cfg = self.cfg
+        wd = self.path("1-consensus")
+        out = os.path.join(wd, "cns_final.fasta.gz")
+        ifiles = _read_input_list(cfg)
+
+        def fn():
+            cur = load_raw_reads(cfg, keep_coverage=cfg.prep_output_coverage)
+            _check_supported(cfg, cur)
+            iterations = []
+            for it in range(cfg.num_iter):
+                logger.info("correction iteration %d/%d: %d reads",
+                            it + 1, cfg.num_iter, cur.n_reads)
+                kind, rescue = ("SENSITIVE", "0") if it == 0 else ("FAST", "1")
+                mopts = MapOptions.from_string(cfg.get(f"OVLP_{kind}_OPTIONS", ""))
+                copts = CnsOptions.from_string(
+                    cfg.get(f"CNS_{kind}_OPTIONS", "") + " -r " + rescue)
+                copts = dataclasses.replace(
+                    copts, full_consensus=(it + 1 != cfg.num_iter),
+                    small_memory=cfg.get("SMALL_MEMORY", "0").strip() in ("1", "true"))
+                fused.pairs_by_band.clear()
+                t0 = time.perf_counter()
+                cands = find_all_candidates(cur, cur, mopts, pairwise=True,
+                                            device=device)
+                t1 = time.perf_counter()
+                recs = correct_reads(cur, Candidates.concat([cands, cands.swap_roles()]),
+                                     copts, device=device)
+                t2 = time.perf_counter()
+                iterations.append({"candidates_s": t1 - t0, "correct_s": t2 - t1,
+                                   "pairs_by_band": {str(w): n for w, n in
+                                                     sorted(fused.pairs_by_band.items())}})
+                logger.info("correction iteration %d: candidates %.3f s, correction "
+                            "%.3f s, pairs by band %s", it + 1, t1 - t0, t2 - t1,
+                            iterations[-1]["pairs_by_band"])
+                recs.sort(key=lambda r: (r.tid, r.left))
+                if it + 1 == cfg.num_iter:
+                    # the final extraction reads corrected pieces only
+                    # (runCnsExtract, necat.pl:397-416)
+                    recs = [r for r in recs if r.corrected]
+                cur = ReadStore.from_seqs(
+                    [r.seq for r in recs],
+                    [f"{r.tid}_{r.left}_{r.right}_{r.org_size}" for r in recs])
+            if cfg.genome_size > 0:
+                cur = cur.subset(cur.longest_to_coverage(cfg.genome_size,
+                                                         cfg.cns_output_coverage))
+            cur.to_fasta(out)
+            logger.info("cns_final: %d reads, %d bases, N50 %d",
+                        cur.n_reads, cur.total_bases, cur.n50()[0])
+            return {"iterations": iterations}
+
+        params = {"num_iter": cfg.num_iter, "cov": cfg.prep_output_coverage,
+                  "cns_cov": cfg.cns_output_coverage,
+                  "min_read_length": cfg.min_read_length,
+                  **{k: cfg.get(k, "") for k in (
+                      "OVLP_SENSITIVE_OPTIONS", "CNS_SENSITIVE_OPTIONS",
+                      "OVLP_FAST_OPTIONS", "CNS_FAST_OPTIONS", "SMALL_MEMORY")}}
+        _stage(wd, "correct", ifiles, [out], params, fn)
+        return out

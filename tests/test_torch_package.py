@@ -27,6 +27,7 @@ PORT_MODULES = [
     "necat_tpu_torch.consensus.fused", "necat_tpu_torch.consensus.correct",
     "necat_tpu_torch.index.kmer_index", "necat_tpu_torch.overlap.candidates",
     "necat_tpu_torch.overlap.chain", "necat_tpu_torch.overlap.overlapper",
+    "necat_tpu_torch.pipeline.stages", "necat_tpu_torch.pipeline.cli",
 ]
 
 
@@ -100,6 +101,33 @@ def test_cuda_kernels_match_plain(cuda_device, W, words):
     assert torch.equal(out_d[0].cpu(), out_c[0])
     assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1]))
     assert torch.equal(out_d[2].cpu(), out_c[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,words", [(2048, 1), (2048, 2), (4096, 1), (4096, 3)])
+def test_cuda_wide_kernels_match_plain(cuda_device, W, words):
+    """The block-per-pair K1 and K3 of the rescue ladder's widths; K2 too."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    PB, L = 5, 3000
+    cpu = _pairs(W + words, PB, L, W)
+    cpu[2][1] = cpu[3][1] // 2 + 1                 # a query far shorter than its target
+    dev = [x.to(cuda_device) for x in cpu]
+    enc_c = bk.diag_sub_matrix(*cpu, W, L)
+    enc_d = bk.diag_sub_matrix(*dev, W, L)
+    assert torch.equal(enc_d.cpu(), enc_c)
+    before = dict(bk.launches_by_width)
+    dirs_c, cost_c = bk.banded_forward(enc_c, cpu[2], cpu[3], W)
+    dirs_d, cost_d = bk.banded_forward(enc_d, dev[2], dev[3], W)
+    assert torch.equal(dirs_d.cpu(), dirs_c) and torch.equal(cost_d.cpu(), cost_c)
+    out_c = bk.banded_backtrack_cols(dirs_c, cpu[2], cpu[3], W, words)
+    out_d = bk.banded_backtrack_cols(dirs_d, dev[2], dev[3], W, words)
+    torch.cuda.synchronize()
+    assert torch.equal(out_d[0].cpu(), out_c[0])
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1]))
+    assert torch.equal(out_d[2].cpu(), out_c[2])
+    assert (out_c[0] >> 5).max() > 0               # insertion runs were exercised
+    for name in ("banded_forward", "banded_backtrack_cols"):
+        assert bk.launches_by_width[(name, W)] == before.get((name, W), 0) + 1
 
 
 @pytest.mark.cuda

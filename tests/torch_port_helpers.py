@@ -15,6 +15,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from necat_tpu.io import simulate
 from necat_tpu.io.readstore import ReadStore
@@ -22,13 +23,13 @@ from necat_tpu.overlap.options import MapOptions
 
 SMALL_MAP_OPTIONS = MapOptions(kmer_size=13, max_hits=1 << 18, max_pairs=4096)
 
+# The plain kernel versions are long chains of small ops, which intra-op
+# threads do not speed up; with one test process per core those threads
+# oversubscribe the cores and slow every process several times over.
+torch.set_num_threads(1)
 
-@pytest.fixture
-def jax_static_band(monkeypatch):
-    """Route the JAX extension through the static-band Pallas kernels in
-    interpret mode. The jit caches are cleared before and after: traces of
-    the other band must not be reused, and xdist may run other test files in
-    the same worker afterwards."""
+
+def _force_static_band(monkeypatch, pallas_enc: bool):
     from necat_tpu.align import banded, pallas_banded
     jax.clear_caches()
     monkeypatch.setattr(banded, "_use_pallas", lambda B: B % 8 == 0)
@@ -38,9 +39,35 @@ def jax_static_band(monkeypatch):
     monkeypatch.setattr(pallas_banded, "banded_backtrack_cols",
                         functools.partial(pallas_banded.banded_backtrack_cols,
                                           interpret=True))
+    if pallas_enc:
+        diag_pallas = pallas_banded._diag_sub_matrix_pallas
+        diag_xla = pallas_banded._diag_sub_matrix
+        monkeypatch.setattr(
+            pallas_banded, "_diag_sub_matrix",
+            lambda a, b, la, lb, W, MC: (
+                diag_pallas(a, b, la, lb, W, MC, 128, interpret=True) if W >= 512
+                else diag_xla(a, b, la, lb, W, MC)))
     yield
     monkeypatch.undo()
     jax.clear_caches()
+
+
+@pytest.fixture
+def jax_static_band(monkeypatch):
+    """Route the JAX extension through the static-band Pallas kernels in
+    interpret mode. The jit caches are cleared before and after: traces of
+    the other band must not be reused, and xdist may run other test files in
+    the same worker afterwards."""
+    yield from _force_static_band(monkeypatch, pallas_enc=False)
+
+
+@pytest.fixture
+def jax_static_band_wide(monkeypatch):
+    """jax_static_band for the rescue ladder's widths: from W = 512 on, the
+    ENC of the interpret-mode forward comes from the Pallas K2 (in interpret
+    mode) instead of the XLA Hankel stack, a stack of W slices that takes
+    minutes to build at W = 2048 (below 512 the stack is the faster one)."""
+    yield from _force_static_band(monkeypatch, pallas_enc=True)
 
 
 def small_store(G=12000, gseed=33, rseed=34, coverage=6) -> ReadStore:
@@ -50,6 +77,21 @@ def small_store(G=12000, gseed=33, rseed=34, coverage=6) -> ReadStore:
     reads, *_ = simulate.simulate_reads(
         genome, coverage=coverage, mean_len=4000, min_len=3000, max_len=5500,
         seed=rseed)
+    return ReadStore.from_seqs(reads)
+
+
+def indel_store(G, gseed, rseed, ins=250, every=3):
+    """Simulated reads at 6x (2-3.5 kb: one length tier) with a random
+    insertion of `ins` bases planted in the middle of every `every`-th read:
+    candidates across it hang until a rung of the ladder crosses it."""
+    genome = simulate.random_genome(G, seed=gseed)
+    reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=2800, min_len=2000,
+                                        max_len=3500, seed=rseed)
+    rng = np.random.default_rng(rseed)
+    for i in range(0, len(reads), every):
+        m = len(reads[i]) // 2
+        reads[i] = np.concatenate([reads[i][:m], rng.integers(0, 4, ins).astype(np.uint8),
+                                   reads[i][m:]])
     return ReadStore.from_seqs(reads)
 
 
