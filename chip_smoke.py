@@ -6,21 +6,28 @@
 Phases, each failing the run on error:
   1. probe   the toolchain and the card (name and power limit as nvidia-smi
              reports them);
-  2. build   the CUDA kernels from necat_tpu_torch/csrc with nvcc (sm_90a);
-  3. kernels K2, K1 and K3 against their plain PyTorch versions on the card,
-             at a production chunk (W=128, L=8192, PB=pairs_per_chunk(8192)),
-             exact equality, each kernel's time beside the plain version's;
+  2. build   the CUDA kernels (nvcc, sm_90a) and the native host library
+             (g++) from necat_tpu_torch/csrc, both compilers started
+             together;
+  3. kernels K1 (from the query and target rows), K3 and the standalone K2
+             against their plain PyTorch versions on the card, at a
+             production chunk (W=128, L=8192, PB=pairs_per_chunk(8192)),
+             exact equality, each kernel's time beside the plain version's
+             and beside its bound (the least time the card could take:
+             the bytes over 3.35 TB/s or the integer operations over
+             16.7 Tops/s, whichever is larger, counted on this run's pairs);
   4. slice   find_all_candidates + correct_reads on "cuda" against the same
              on "cpu" (the plain versions) on a small read set: identical
              records;
   5. main    the bench read set (gen_benchmark_reads(200_000, 20, seed=7):
              339 reads, 4.02 Mb) through find_all_candidates -> swap_roles ->
-             correct_reads with default options; every kernel must launch,
-             and the corrected count and identity must stay within the
-             margins of necat_tpu's own run of this set on the CPU;
-  6. rungs   K2, K1 and K3 at every width the rescue ladder reaches from
-             W0=128: 512 and 1024 (a warp per pair), 2048 and 4096 (a block
-             per pair), L=8192, PB=pairs_per_chunk(8192, W), against their
+             correct_reads with default options; K1 and K3 must launch and
+             K2 must not (K1 computes ENC itself), and the corrected count
+             and identity must stay within the margins of necat_tpu's own
+             run of this set on the CPU;
+  6. rungs   K1, K2 and K3 at every width the rescue ladder reaches from
+             W0=128: 512, 1024, 2048 and 4096 (K1 runs a block per pair from
+             512, K3 from 1024), L=8192, PB=pairs_per_chunk(8192, W), against their
              plain versions, exact equality, times beside the plain versions';
   7. rescue  planted insertions of 300, 600 and 1000 bp (the rungs 1024,
              2048 and 4096 each carry a pair): extend_candidates and
@@ -36,12 +43,13 @@ Phases, each failing the run on error:
 The launch counts are set to 0 before each path (main, rescue, correct) and
 read after it. It prints one JSON line of kernel results, the card line, and
 last a JSON status line {"ok": true, "device": {...}}. Without CUDA it exits
-non-zero before printing any result.
+non-zero before printing any result. It imports nothing of necat_tpu.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -61,12 +69,29 @@ import torch  # noqa: E402
 JAX_CPU_REFERENCE = {"corrected_reads": 339, "identity": 99.13}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
 RUNGS = (512, 1024, 2048, 4096)      # the rescue ladder's widths from W0=128
-WIDE = (2048, 4096)                  # the widths K1 and K3 run a block per pair at
+WIDE = (2048, 4096)                  # rungs the rescue phase must launch K1 and K3 at
 RESCUE_INSERTS = (0, 300, 0, 600, 1000, 0)
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
+ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA H100 datasheet) and INT32 operations/s
+# (132 SMs x 64 INT32 lanes x 1.98 GHz, NVIDIA H100 white paper)
+PEAK_BYTES_S = 3.35e12
+PEAK_INT_OPS_S = 132 * 64 * 1.98e9
+# Integer operations the function needs, the fewest it can be done in. An
+# ENC byte (mismatch | qbase << 1) costs 9 operations per 4 bytes packed in a
+# word: the per-byte "differs" test (xor, and, add, or, shift, and), the
+# query base (and, shift) and the or. A K1 cell (a lane of a column at or
+# below lb) adds the DP step: diag add, left add, min, the insertion chain's
+# prefix-min step and the op select (5). K2 computes one ENC byte per output
+# byte. K3's walk tests, per live column, the lanes from its slot down to the
+# end of the insertion run there (k + 1 of them, k from its cols output):
+# op bits and a compare each.
+ENC_OPS = 9 / 4
+OPS_PER_CELL = {"banded_forward": ENC_OPS + 5, "diag_sub_matrix": ENC_OPS}
+OPS_PER_WALK_LANE = 2
 
 
 def _run(cmd) -> str:
@@ -95,9 +120,12 @@ def probe() -> str:
 
 
 def build() -> None:
+    from necat_tpu_torch import native
     from necat_tpu_torch.utils import build as b
     t0 = time.perf_counter()
-    b.load_kernels()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # nvcc and g++ together
+        for f in [pool.submit(b.load_kernels), pool.submit(native.load)]:
+            f.result()
     ptxas = [ln.strip() for ln in b.BUILD_LOG.read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln] if b.BUILD_LOG.exists() else []
     print(f"build {time.perf_counter() - t0:.1f} s", *ptxas, sep="\n  ", flush=True)
@@ -137,12 +165,36 @@ def _cuda_kernel(name: str, W: int) -> str:
     return f"{base}_kernel<{W}>"
 
 
-def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
-    """Each kernel against its plain version at one production chunk;
-    results keyed (kernel, W)."""
-    from necat_tpu.io import simulate
-    from necat_tpu.utils import shapes
-    from necat_tpu_torch.align import banded_kernels as bk
+def bound(name: str, a, b, lb, W: int, cols=None):
+    """(bound_ms, bound_by) of one launch on these inputs: each input byte
+    read once and each output byte written once over PEAK_BYTES_S, or the
+    integer operations it needs over PEAK_INT_OPS_S, whichever takes longer.
+    K3 reads only the live rows of dirs and writes cols and one insb word;
+    its operations follow the walk, from its cols output."""
+    PB, L = a.shape
+    MC = b.shape[1]
+    ncol = lb.clamp(min=0, max=MC)
+    live = int(ncol.sum()) * W                            # cells of columns <= lb
+    rows = a.numel() + b.numel() + 8 * PB
+    nbytes = {"diag_sub_matrix": rows + PB * MC * W,
+              "banded_forward": rows + PB * MC * W + 4 * PB,
+              "banded_backtrack_cols": live + 8 * PB + 8 * PB * MC + 4 * PB}[name]
+    if name == "banded_backtrack_cols":
+        in_walk = torch.arange(MC, device=cols.device)[None, :] < ncol[:, None]
+        ops = int(((cols >> 5) + 1)[in_walk].sum()) * OPS_PER_WALK_LANE
+    else:
+        ops = (PB * MC * W if name == "diag_sub_matrix" else live) * OPS_PER_CELL[name]
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_pairs(dev, W: int, L: int = 8192):
+    """One production chunk of pairs at width W (seed 2024): PB =
+    pairs_per_chunk(L, W) targets of L/4 .. L bases and 15 %-error copies as
+    queries, lengths clamped to |la - lb| <= W/4. Returns a, b, la, lb on dev."""
+    from necat_tpu_torch.io import simulate
+    from necat_tpu_torch.utils import shapes
     PB = shapes.pairs_per_chunk(L, W)
     rng = np.random.default_rng(2024)
     em = simulate.ErrorModel(sub=0.05, ins=0.05, dele=0.05)
@@ -155,14 +207,21 @@ def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
         q = simulate.mutate(t, em, rng)[:L]
         a[i, :len(q)], b[i, :len(t)] = q, t
         la[i], lb[i] = min(len(q), len(t) + W // 4), min(len(t), len(q) + W // 4)
-    a, b, la, lb = (torch.from_numpy(x).to(dev) for x in (a, b, la, lb))
+    return [torch.from_numpy(x).to(dev) for x in (a, b, la, lb)]
+
+
+def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
+    """Each kernel against its plain version at one production chunk;
+    results keyed (kernel, W)."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    a, b, la, lb = kernel_pairs(dev, W, L)
+    PB = a.shape[0]
     steps = {
+        "banded_forward": (lambda: bk.banded_forward(a, b, la, lb, W),
+                           lambda: bk.banded_forward_ref(a, b, la, lb, W)),
         "diag_sub_matrix": (lambda: bk.diag_sub_matrix(a, b, la, lb, W, L),
                             lambda: bk.diag_sub_matrix_ref(a, b, la, lb, W, L)),
     }
-    enc = steps["diag_sub_matrix"][0]()
-    steps["banded_forward"] = (lambda: bk.banded_forward(enc, la, lb, W),
-                               lambda: bk.banded_forward_ref(enc, la, lb, W))
     dirs, _ = steps["banded_forward"][0]()
     steps["banded_backtrack_cols"] = (lambda: bk.banded_backtrack_cols(dirs, la, lb, W, 1),
                                       lambda: bk.banded_backtrack_cols_ref(dirs, la, lb, W, 1))
@@ -175,12 +234,16 @@ def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
         err = _max_abs_err(got, want)
         ms = _time_ms(kernel, 5)
         plain_ms = _time_ms(plain, 1)
+        bound_ms, bound_by = bound(name, a, b, lb, W,
+                                   got[0] if name == "banded_backtrack_cols" else None)
         results[(name, W)] = dict(name=name, W=W, cuda_kernel=_cuda_kernel(name, W),
                                   route="cuda", source=KERNEL_SOURCE,
                                   replaces=REPLACES[name], max_abs_err=err, ms=ms,
-                                  plain_ms=plain_ms)
+                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=None)
         print(f"kernel {name}: PB={PB} L={L} W={W} max_abs_err={err} "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f} % of it)", flush=True)
         if err != 0.0:
             raise AssertionError(f"{name}: kernel and plain version disagree ({err})")
     return results
@@ -197,12 +260,12 @@ def _same_records(ra, rb) -> None:
 
 def check_slice(dev) -> None:
     """Small read set: the cuda path equals the cpu path (plain versions)."""
-    from necat_tpu.consensus.options import CnsOptions
-    from necat_tpu.io import simulate
-    from necat_tpu.io.readstore import ReadStore
-    from necat_tpu.overlap.options import MapOptions
     from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.io import simulate
+    from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
     genome = simulate.random_genome(12000, seed=33)
     reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,
@@ -228,7 +291,7 @@ def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
     corrected pieces of >= 2 kb (bench.py:accuracy_sample); a piece
     [left, right) of a read of lengths[tid] maps to the same fraction of the
     read's genome interval."""
-    from necat_tpu.io import simulate
+    from necat_tpu_torch.io import simulate
     idents = []
     for r in recs:
         if not r.corrected or len(idents) >= n_sample:
@@ -248,17 +311,18 @@ def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
 
 
 def main_path(dev, launch_counts: dict) -> dict:
-    from necat_tpu.consensus.options import CnsOptions
-    from necat_tpu.overlap.options import MapOptions
-    from necat_tpu.utils.benchdata import gen_benchmark_reads
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
     from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
+    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
     genome, store, (st, sd, ln) = gen_benchmark_reads(genome_size=200_000,
                                                       coverage=20, seed=7)
-    bk.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launches()
     t0 = time.perf_counter()
     cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
     call = Candidates.concat([cands, cands.swap_roles()])
@@ -280,8 +344,8 @@ def main_path(dev, launch_counts: dict) -> dict:
         "corrected_reads_per_s": round(ncorr / (t2 - t0), 3),
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
         "launches": launches}), flush=True)
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if any(launches[k] == 0 for k in ON_PATH) or launches["diag_sub_matrix"]:
+        raise AssertionError(f"main must launch K1 and K3 and not K2: {launches}")
     for r in recs:
         if r.seq.dtype != np.uint8 or (len(r.seq) and r.seq.max() > 3):
             raise AssertionError(f"record of template {r.tid} holds non-base codes")
@@ -302,8 +366,8 @@ def planted_pairs(seed: int = 11, tlen: int = 6000, inserts=RESCUE_INSERTS):
     plain versions on the CPU), so the rungs 1024, 2048 and 4096 each carry
     a pair. (Longer insertions are not crossed: the extension clamps
     |la - lb| to W/4, so crossing n inserted bases costs about 2n - W/4.)"""
-    from necat_tpu.io import simulate
-    from necat_tpu.io.readstore import ReadStore
+    from necat_tpu_torch.io import simulate
+    from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.overlap.candidates import Candidates
     rng = np.random.default_rng(seed)
     em = simulate.ErrorModel(sub=0.02, ins=0.02, dele=0.02)
@@ -327,9 +391,9 @@ def planted_pairs(seed: int = 11, tlen: int = 6000, inserts=RESCUE_INSERTS):
 def check_rescue(dev, launch_counts: dict) -> None:
     """extend_candidates and correct_reads(rescue_long_indels=True) of the
     planted pairs on each device; identical results."""
-    from necat_tpu.consensus.options import CnsOptions
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
     from necat_tpu_torch.overlap.candidates import Candidates
     from necat_tpu_torch.overlap.overlapper import extend_candidates
     rs, cands = planted_pairs()
@@ -369,12 +433,12 @@ def check_correct(launch_counts: dict, main_res: dict) -> None:
     """The CLI's correct command (Project.run_correct) on the bench read set
     with the config template's options and NUM_ITER=2 (iteration 2 runs the
     rescue ladder), on "cuda"."""
-    from necat_tpu.io.readstore import ReadStore
-    from necat_tpu.pipeline import config as config_mod
-    from necat_tpu.utils.benchdata import gen_benchmark_reads
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import CnsRecord
+    from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.pipeline import cli
+    from necat_tpu_torch.pipeline import config as config_mod
+    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
     genome, store, (st, sd, ln) = gen_benchmark_reads(genome_size=200_000,
                                                       coverage=20, seed=7)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -403,8 +467,8 @@ def check_correct(launch_counts: dict, main_res: dict) -> None:
     if rc != 0:
         raise AssertionError(f"correct: the command line exited {rc}")
     ran = {k for (k, _), n in launch_counts["correct"].items() if n}
-    if ran != set(REPLACES):
-        raise AssertionError(f"correct: a kernel of the path never launched: {ran}")
+    if ran != set(ON_PATH):
+        raise AssertionError(f"correct: K1 and K3 must launch and K2 not: {ran}")
     cns_dir = os.path.join(WORK, "project", "1-consensus")
     final = ReadStore.from_fasta(os.path.join(cns_dir, "cns_final.fasta.gz"))
     with open(os.path.join(cns_dir, "correct.done.json")) as f:
@@ -450,6 +514,7 @@ def main() -> int:
     for (name, W), entry in kernels.items():
         by_path = {path: c.get((name, W), 0) for path, c in launch_counts.items()}
         entry["launches"] = sum(by_path.values())
+        entry["launches_main"] = by_path["main"]
         entry["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -4,6 +4,7 @@ Candidate detection (overlap.overlapper.find_all_candidates) followed by read
 correction (consensus.correct.correct_reads), on a device the caller names:
 "cuda" runs the hand-written Hopper kernels of csrc/, "cpu" their plain
 PyTorch versions. The JAX package necat_tpu is the reference the port is
-tested against; the port imports only its JAX-free host modules (read store,
-options, shape tiers, native index build).
+tested against; the port imports nothing of it and keeps its own copies of
+the host modules it needs (read store, FASTA I/O, options, shape tiers,
+config, the native parser and k-mer index build).
 """

@@ -3,9 +3,10 @@
 Counterpart of the static-band (Pallas) branch of
 necat_tpu/align/banded.py:_extend_batch_jit. Each pair extends left over the
 reversed prefixes and right over the suffixes of its anchors; each side runs
-the K2 -> K1 -> K3 kernels of banded_kernels (their plain versions for CPU
-tensors) and is clipped back to the last run of TAIL_MATCH matched columns
-(oc_aligner.c:223-259 retreat logic).
+the K1 -> K3 kernels of banded_kernels (their plain versions for CPU
+tensors; K1 computes the mismatch encoding itself) and is clipped back to
+the last run of TAIL_MATCH matched columns (oc_aligner.c:223-259 retreat
+logic).
 """
 
 from __future__ import annotations
@@ -82,7 +83,6 @@ def extend_batch(qbatch, qlens, tbatch, tlens, anchor_q, anchor_t,
     jc; qoff/qend/toff/tend, n_cols, n_match, ident (f32 percent) and the
     packed stats i32[6, B] = (qoff, qend, toff, tend, n_cols, n_match)."""
     B, LQ = qbatch.shape
-    LT = tbatch.shape[1]
     # both sides run as one batch of 2B pairs: left over the reversed
     # prefixes, right over the suffixes
     a = torch.cat([gather_rev_prefix(qbatch, anchor_q),
@@ -96,9 +96,7 @@ def extend_batch(qbatch, qlens, tbatch, tlens, anchor_q, anchor_t,
     # tails this cuts (see necat_tpu/align/banded.py)
     la = torch.minimum(la_full, lb_full + W // 4).to(torch.int32)
     lb = torch.minimum(lb_full, la_full + W // 4).to(torch.int32)
-    enc = bk.diag_sub_matrix(a, b, la, lb, W, LT)
-    dirs, _ = bk.banded_forward(enc, la, lb, W)
-    del enc
+    dirs, _ = bk.banded_forward(a, b, la, lb, W)
     cols, insb, lead = bk.banded_backtrack_cols(dirs, la, lb, W, insb_words)
     del dirs
     out = {}

@@ -6,8 +6,10 @@ holds query row i = j + l - ctr with the per-pair band centre
 ctr = W/2 - floor((la - lb) / 2) (the extension clamps |la - lb| <= W/4).
 
   diag_sub_matrix        (K2)  ENC u8[PB, MC, W] = mismatch | qbase << 1
+                               (standalone: K1 computes ENC itself)
   banded_forward         (K1)  dirs u8[PB, MC, W] = op | mismatch << 2 |
-                               qbase << 3, and the cost at (la, lb)
+                               qbase << 3, and the cost at (la, lb), from
+                               the query and target rows
   banded_backtrack_cols  (K3)  cols i32[PB, MC] = op | match << 2 |
                                qbase << 3 | k << 5, `words` insb words, lead
 
@@ -47,19 +49,29 @@ def band_centre(W: int, la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- plain versions
 
-def diag_sub_matrix_ref(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
-    """ENC[p, jc, l] = (aq != tc) | (aq & 3) << 1 with aq = a[p, jc + l - ctr_p]
-    (PAD_BASE outside [0, L)) and tc = b[p, jc] (PAD_TARGET past b's width)."""
+def _enc_inputs(a, b, la, lb, W: int, MC: int):
+    """(query window view u8[PB, MC, W], target column u8[PB, MC]): the query
+    base of lane l at column jc is a[p, jc + l - ctr_p] (PAD_BASE outside
+    [0, L)), the target base b[p, jc] (PAD_TARGET past b's width)."""
     PB, L = a.shape
     ctr = band_centre(W, la.long(), lb.long())
     src = torch.arange(MC + W, device=a.device)[None, :] - ctr[:, None]
     ok = (src >= 0) & (src < L)
     a_shift = torch.where(ok, a.gather(1, src.clamp(0, L - 1)), PAD_BASE)
-    dq = a_shift.unfold(1, W, 1)[:, :MC, :]                # [PB, MC, W] view
     mc = min(MC, b.shape[1])
     tcol = torch.full((PB, MC), PAD_TARGET, dtype=torch.uint8, device=a.device)
     tcol[:, :mc] = b[:, :mc]
+    return a_shift.unfold(1, W, 1)[:, :MC, :], tcol
+
+
+def _enc(dq, tcol) -> torch.Tensor:
     return (dq != tcol[:, :, None]).to(torch.uint8) | ((dq & 3) << 1)
+
+
+def diag_sub_matrix_ref(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
+    """ENC[p, jc, l] = (aq != tc) | (aq & 3) << 1 with aq = a[p, jc + l - ctr_p]
+    (PAD_BASE outside [0, L)) and tc = b[p, jc] (PAD_TARGET past b's width)."""
+    return _enc(*_enc_inputs(a, b, la, lb, W, MC))
 
 
 def _column_blocks(n: int, block: int = 1024):
@@ -68,9 +80,11 @@ def _column_blocks(n: int, block: int = 1024):
     return [(lo, min(lo + block, n)) for lo in range(0, n, block)]
 
 
-def banded_forward_ref(enc, la, lb, W: int):
-    """Static-band DP over ENC u8[PB, MC, W] -> (dirs u8[PB, MC, W], cost
-    i32[PB]), one vectorised step per target column.
+def banded_forward_ref(a, b, la, lb, W: int, max_cols: int | None = None):
+    """Static-band DP of a u8[PB, L] against b u8[PB, Lb] -> (dirs u8[PB, MC,
+    W], cost i32[PB]) with MC = max_cols (default Lb): diag_sub_matrix_ref's
+    ENC, a block of columns at a time, then one vectorised step per target
+    column.
 
     Each column's D is stored as [PB, W+1] with a spare lane W held at INF,
     in one flat buffer of all columns: the left neighbour (lane l+1) and the
@@ -78,8 +92,10 @@ def banded_forward_ref(enc, la, lb, W: int):
     element off. Lanes below row 0 need no mask before the insertion scan
     (they hold INF or more and cannot lower a finite value); lanes outside
     rows [0, la] are set to INF after it."""
-    PB, MC, _ = enc.shape
-    dev = enc.device
+    PB = a.shape[0]
+    MC = b.shape[1] if max_cols is None else max_cols
+    dev = a.device
+    qwin, tcol = _enc_inputs(a, b, la, lb, W, MC)
     i32 = torch.int32
     la = la.to(i32)[:, None]
     lb = lb.to(i32)[:, None]
@@ -101,7 +117,8 @@ def banded_forward_ref(enc, la, lb, W: int):
         i = rows(j)                                           # [cols, PB, W+1]
         outside = (i < 0) | (i > la)
         row0 = (i == 0).reshape(hi - lo, -1)
-        e = torch.nn.functional.pad(enc[:, lo:hi].to(i32), (0, 1)).transpose(0, 1)
+        enc = _enc(qwin[:, lo:hi], tcol[:, lo:hi]).to(i32)
+        e = torch.nn.functional.pad(enc, (0, 1)).transpose(0, 1)
         sub = (e & 1).reshape(hi - lo, -1)
         enc_bits = (e << 2).reshape(hi - lo, -1)
         out = torch.empty((hi - lo, PB, W + 1), dtype=torch.uint8, device=dev)
@@ -266,19 +283,24 @@ def diag_sub_matrix(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
     return out
 
 
-def banded_forward(enc, la, lb, W: int):
-    """K1: (dirs u8[PB, MC, W], cost i32[PB]) from ENC u8[PB, MC, W]."""
-    if _on_cpu(enc, la, lb):
-        return banded_forward_ref(enc, la, lb, W)
-    PB, MC, _ = enc.shape
+def banded_forward(a, b, la, lb, W: int, max_cols: int | None = None):
+    """K1: (dirs u8[PB, MC, W], cost i32[PB]) from a u8[PB, L], b u8[PB, Lb],
+    la/lb i32[PB]; MC = max_cols, b's width by default (the signature of
+    necat_tpu's banded_forward_pallas)."""
+    if _on_cpu(a, b, la, lb):
+        return banded_forward_ref(a, b, la, lb, W, max_cols)
+    PB, L = a.shape
+    MC = b.shape[1] if max_cols is None else max_cols
     _check_width(W)
-    _check(enc, "enc", torch.uint8, (PB, MC, W))
+    _check(a, "a", torch.uint8, (PB, L))
+    _check(b, "b", torch.uint8, (PB, b.shape[1]))
     _check(la, "la", torch.int32, (PB,))
     _check(lb, "lb", torch.int32, (PB,))
-    dirs = torch.empty_like(enc)
-    cost = torch.empty((PB,), dtype=torch.int32, device=enc.device)
-    _launch("necat_banded_forward", enc.device, enc.data_ptr(), la.data_ptr(),
-            lb.data_ptr(), dirs.data_ptr(), cost.data_ptr(), PB, MC, W)
+    dirs = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
+    cost = torch.empty((PB,), dtype=torch.int32, device=a.device)
+    _launch("necat_banded_forward", a.device, a.data_ptr(), L, b.data_ptr(),
+            b.shape[1], la.data_ptr(), lb.data_ptr(), dirs.data_ptr(),
+            cost.data_ptr(), PB, MC, W)
     launches_by_width[("banded_forward", W)] += 1
     return dirs, cost
 

@@ -14,9 +14,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from necat_tpu.utils import shapes
 from necat_tpu_torch.align.banded import TAIL_MATCH, extend_batch
 from necat_tpu_torch.io.devstore import gather_rows
+from necat_tpu_torch.utils import shapes
 
 # descriptor columns (int32; DeviceReadStore guarantees offsets < 2^31)
 DESC_COLS = ("qg", "qglen", "qrc", "tg", "tglen", "qlen", "tlen", "aq", "at")

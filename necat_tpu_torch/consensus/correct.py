@@ -21,15 +21,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from necat_tpu.consensus.options import CnsOptions
-from necat_tpu.io.readstore import ReadStore
-from necat_tpu.utils import shapes
 from necat_tpu_torch.align.banded_kernels import N_INSB
 from necat_tpu_torch.align.engine import ExtendEngine, rescue_widths
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.backbone import compact_from_packed, consensus_packed
+from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.io.devstore import DeviceReadStore
+from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
+from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -68,6 +68,9 @@ def group_by_template(cands: Candidates, max_examined: int) -> Dict[int, np.ndar
 def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
     """The port runs the default configuration on one device only; refuse the
     others rather than run something else."""
+    if not isinstance(opts, CnsOptions) or not isinstance(store, ReadStore):
+        raise TypeError("correct_reads takes necat_tpu_torch's CnsOptions and ReadStore, "
+                        f"not {type(opts).__module__}/{type(store).__module__}")
     unsupported = {
         "more than one device": isinstance(device, (list, tuple)),
         "small_memory": opts.small_memory or store.total_bases >= (1 << 31),

@@ -20,12 +20,26 @@
 
 namespace {
 
+// Widths from which K1 (forward) and K3 (backtrack) run one thread block per
+// pair instead of one warp, from same-call measurements on an H100 80GB
+// HBM3 at 700 W (PERF.md): K1 at W = 512 took 8.44 ms with a block per pair
+// against 9.24 ms with a warp; K3 at 512 took 2.00 ms with a warp against
+// 2.69 ms with a block.
+constexpr int K1_WIDE_MIN = 512;
+constexpr int K3_WIDE_MIN = 1024;
+// Columns of K1's loop unrolled together (within a 32-column tile), so that
+// one column's output encoding can issue beside the next column's chain: 2
+// with a block per pair (4.31 against 5.19 ms at W = 512), 1 with a warp per
+// pair (2.04 against 2.24 ms at W = 128).
+constexpr int K1_UNROLL_WARP = 1, K1_UNROLL_BLOCK = 2;
+
 constexpr int INF = 1 << 20;
 constexpr int OP_DIAG = 0, OP_DEL = 1, OP_INS = 2, OP_PAD = 3;
 constexpr int PAD_BASE = 127;     // query padding: never equals a target base
 constexpr int PAD_TARGET = 255;   // target padding past b's width
 constexpr int N_INSB = 7;         // inserted bases per insb word and end
 constexpr unsigned FULL = 0xffffffffu;
+constexpr uint32_t D_BITS = 21;   // 0 <= D <= INF < 2^21: D and a byte share a word
 
 // floor(a / b) for b > 0. C's `/` truncates toward zero, which would put odd
 // negative length differences one lane off the JAX reference.
@@ -42,46 +56,85 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// V consecutive bytes of one band row, lanes t*V .. t*V+V-1.
+// ------------------------------------------------------- V bytes in registers
+// A thread's V consecutive band lanes t*V .. t*V+V-1, byte s of the row at
+// bits 8*(s%4) of word s/4.
 template <int V>
-__device__ __forceinline__ void load_row(const uint8_t* __restrict__ row, int t,
-                                         int (&v)[V]) {
-  if constexpr (V % 4 == 0) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(row + t * V);
+struct Bytes {
+  static constexpr int N = (V + 3) / 4;
+  uint32_t w[N];
+
+  __device__ __forceinline__ int get(int s) const { return (w[s >> 2] >> (8 * (s & 3))) & 0xff; }
+
+  // Drop byte 0 and append nb as byte V-1 (the query window slides one lane
+  // per column). Bytes past V-1 in the last word stay 0.
+  __device__ __forceinline__ void shift_in(uint32_t nb) {
 #pragma unroll
-    for (int q = 0; q < V / 4; ++q) {
-      uint32_t x = w[q];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) v[4 * q + s] = (x >> (8 * s)) & 0xff;
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < V; ++s) v[s] = row[t * V + s];
+    for (int k = 0; k < N - 1; ++k) w[k] = __funnelshift_r(w[k], w[k + 1], 8);
+    w[N - 1] = (w[N - 1] >> 8) | (nb << (8 * ((V - 1) & 3)));
   }
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ src) {
+    if constexpr (V % 16 == 0) {
+#pragma unroll
+      for (int k = 0; k < N / 4; ++k) {
+        const uint4 x = reinterpret_cast<const uint4*>(src)[k];
+        w[4 * k] = x.x; w[4 * k + 1] = x.y; w[4 * k + 2] = x.z; w[4 * k + 3] = x.w;
+      }
+    } else if constexpr (V == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(src);
+      w[0] = x.x; w[1] = x.y;
+    } else if constexpr (V == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(src);
+    } else {
+      w[0] = 0;
+#pragma unroll
+      for (int s = 0; s < V; ++s) w[0] |= (uint32_t)src[s] << (8 * s);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* __restrict__ dst) const {
+    if constexpr (V % 16 == 0) {
+#pragma unroll
+      for (int k = 0; k < N / 4; ++k)
+        reinterpret_cast<uint4*>(dst)[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+    } else if constexpr (V == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+    } else {
+#pragma unroll
+      for (int s = 0; s < V; ++s) dst[s] = (uint8_t)get(s);
+    }
+  }
+};
+
+// Per byte of x: 1 where it differs from y's byte, else 0.
+__device__ __forceinline__ uint32_t bytes_ne(uint32_t x, uint32_t y) {
+  const uint32_t d = x ^ y;
+  return ((((d & 0x7f7f7f7fu) + 0x7f7f7f7fu) | d) >> 7) & 0x01010101u;
 }
 
-template <int V>
-__device__ __forceinline__ void store_row(uint8_t* __restrict__ row, int t,
-                                          const int (&v)[V]) {
-  if constexpr (V % 4 == 0) {
-    uint32_t* w = reinterpret_cast<uint32_t*>(row + t * V);
-#pragma unroll
-    for (int q = 0; q < V / 4; ++q) {
-      uint32_t x = 0;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) x |= (uint32_t)(v[4 * q + s] & 0xff) << (8 * s);
-      w[q] = x;
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < V; ++s) row[t * V + s] = (uint8_t)v[s];
-  }
+// ------------------------------------------------------- cp.async (sm_80+)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one_pending() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- K2: ENC
 // Replaces _diag_kernel / _diag_sub_matrix_pallas
 // (necat_tpu/align/pallas_banded.py). ENC[p, jc, l] compares query base
-// a[p, jc + l - ctr_p] with target base b[p, jc].
+// a[p, jc + l - ctr_p] with target base b[p, jc]. Since K1 computes ENC
+// itself, K2 is the standalone entry point only; the main path never runs it.
 // Bound: device-memory bandwidth. It writes PB*MC*W bytes and reads each
 // query byte about once from L1/L2, so the design is one thread per four
 // output bytes with 4-byte stores, neighbouring threads on neighbouring
@@ -112,157 +165,208 @@ __global__ void diag_sub_matrix_kernel(const uint8_t* __restrict__ a, int La,
 
 // ------------------------------------------------- K1 and K3: pair tiling
 // K1 and K3 hold a pair's band row in registers: thread t of the pair owns
-// the V consecutive lanes t*V .. t*V+V-1. Up to W = 1024 one warp runs a pair
-// (V = W/32, WARPS_PER_BLOCK pairs per block). The rescue ladder climbs to
-// W = 4096 (necat_tpu/utils/shapes.py MAX_BAND), where a warp per pair would
-// hold 128 lanes per thread (K1 needs 222 registers at W = 1024 already), so
-// from WIDE_MIN one thread block of NW warps runs a pair, V_WIDE lanes per
-// thread, and the steps that cross a warp boundary go through shared memory
-// (the `if constexpr (NW > 1)` parts of the kernels). Widths this large run
-// only in the rescue ladder, a few pairs per chunk.
+// the V consecutive lanes t*V .. t*V+V-1. Below WIDE_MIN one warp runs a pair
+// (V = W/32, WARPS_PER_BLOCK pairs per block); from WIDE_MIN one thread block
+// of NW warps runs a pair, V_WIDE lanes per thread, and the steps that cross
+// a warp boundary go through shared memory (the `if constexpr (NW > 1)`
+// parts). A warp per pair walks V lanes serially per column, which sets the
+// column time at large V (K1 took 2.68 us per column at V = 32, W = 1024).
 constexpr int WARPS_PER_BLOCK = 4;
 constexpr int V_WIDE = 8;
-constexpr int WIDE_MIN = 2048;            // widths from here on take a block per pair
 
-template <int W>
+template <int W, int WIDE_MIN>
 struct Tiling {
   static constexpr int V = W < WIDE_MIN ? W / 32 : V_WIDE;   // lanes per thread
   static constexpr int NW = W / V / 32;                     // warps per pair
-  static constexpr int THREADS = NW > 1 ? 32 * NW : 32 * WARPS_PER_BLOCK;
-  static int blocks(int PB) {
-    return NW > 1 ? PB : (PB + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  }
+  static constexpr int PAIRS = NW > 1 ? 1 : WARPS_PER_BLOCK; // pairs per block
+  static constexpr int THREADS = 32 * NW * PAIRS;
+  static int blocks(int PB) { return (PB + PAIRS - 1) / PAIRS; }
 };
 
 // This thread's pair p and its rank t within the pair; false for the warps of
 // the last block that have no pair (whole warps only).
-template <int W>
+template <class T>
 __device__ __forceinline__ bool pair_thread(int PB, int& p, int& t) {
-  if constexpr (Tiling<W>::NW > 1) {
+  if constexpr (T::NW > 1) {
     p = blockIdx.x;
     t = threadIdx.x;
   } else {
-    p = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+    p = blockIdx.x * T::PAIRS + (threadIdx.x >> 5);
     t = threadIdx.x & 31;
   }
   return p < PB;
 }
 
+// Columns at or past ncol of a pair are OP_PAD bytes: one contiguous range of
+// dirs, written 16 bytes a thread.
+__device__ __forceinline__ void fill_pad(uint8_t* __restrict__ dp, int ncol, int MC,
+                                         int W, int t, int nthreads) {
+  const uint4 pad = make_uint4(0x03030303u, 0x03030303u, 0x03030303u, 0x03030303u);
+  const size_t end = (size_t)MC * W;
+  for (size_t o = (size_t)ncol * W + 16 * (size_t)t; o < end; o += 16 * (size_t)nthreads)
+    *reinterpret_cast<uint4*>(dp + o) = pad;
+}
+
 // ------------------------------------------------------------ K1: forward
-// Replaces _forward_kernel / banded_forward_pallas
-// (necat_tpu/align/pallas_banded.py): static-band edit-distance DP.
-// Bound: the chain of up to 40960 dependent columns of one pair, plus two
-// bytes of traffic per cell (ENC in, dirs out). The column loop runs inside
-// the kernel, pairs in parallel. Per column, the left neighbour (lane l+1)
-// is one __shfl_down_sync and, for a warp's last thread, the first lane of
-// the next warp from shared memory (first[]); the insertion chain (a prefix
-// minimum over lanes) is a thread-local scan, a 5-step __shfl_up_sync warp
-// scan and a scan of the per-warp totals (wtot[]) in shared memory. The up
-// neighbour of a thread's first lane is one __shfl_up_sync with a warp per
-// pair; with a block per pair it is Dn[l-1] = min(prefix-min over lanes
-// < l + (l-1), INF), the thread's exclusive prefix `before` shifted, which
-// needs no third barrier. __syncthreads per column: none with a warp per pair,
-// 2 with a block per pair (the warp totals must be visible before the
-// cross-warp scan; first[] must be rewritten before the next column reads
-// it). Columns past lb are written as OP_PAD without any DP.
+// Replaces _forward_kernel / banded_forward_pallas, and with it the work of
+// _diag_kernel (necat_tpu/align/pallas_banded.py): static-band edit-distance
+// DP of a[0:la] against b[0:lb], computing each cell's mismatch and query
+// base itself from the pair's query and target rows, so that no [PB, MC, W]
+// ENC buffer exists. Output: dirs bytes and the cost at (la, lb).
+//
+// Bound: the chain of up to 40960 dependent columns of one pair (a launch
+// holds at most 1024 pairs, 8 warps per SM), so the design keeps every load
+// from device memory off that chain:
+//  - the thread's V query bases slide one lane per column; they live in
+//    registers (Bytes<V>), and the one new base comes from the next thread
+//    in the same __shfl_down_sync that brings the left neighbour's D
+//    (D < 2^21, so D and the byte share one word);
+//  - the bases that enter at each warp's last lane (the query byte one past
+//    the warp's lanes) and the target base of the column are loaded for 32
+//    columns at a time, one byte a lane, a tile ahead into registers, and
+//    reach the column as one __shfl_sync;
+//  - dirs rows are stored as V-byte vectors, neighbouring threads on
+//    neighbouring bytes; columns past lb are one contiguous OP_PAD range.
+// Per column the insertion chain (a prefix minimum over lanes) is a
+// thread-local scan, a 5-step __shfl_up_sync warp scan and, with a block per
+// pair, a __reduce_min_sync over the per-warp totals in shared memory. The
+// block tiling needs one __syncthreads per column: the per-warp totals and
+// first-lane x values sit in a double buffer (by column parity), and a
+// warp's last lane rebuilds the next warp's first-lane D from them
+// (D[l0] = min(prefix-min of x over lanes <= l0 + l0, INF)), so no second
+// exchange is needed before the next column reads it.
 template <int W>
-__global__ void __launch_bounds__(Tiling<W>::THREADS)
-banded_forward_kernel(const uint8_t* __restrict__ enc, const int* __restrict__ la_,
-                      const int* __restrict__ lb_, uint8_t* __restrict__ dirs,
-                      int* __restrict__ cost, int PB, int MC) {
-  constexpr int V = Tiling<W>::V, NW = Tiling<W>::NW;
-  __shared__ int wtot[NW];        // inclusive insertion-scan total of each warp
-  __shared__ int first[NW + 1];   // D of each warp's first lane; first[NW] = INF
+__global__ void __launch_bounds__(Tiling<W, K1_WIDE_MIN>::THREADS)
+banded_forward_kernel(const uint8_t* __restrict__ a, int La,
+                      const uint8_t* __restrict__ b, int Lb,
+                      const int* __restrict__ la_, const int* __restrict__ lb_,
+                      uint8_t* __restrict__ dirs, int* __restrict__ cost, int PB, int MC) {
+  using T = Tiling<W, K1_WIDE_MIN>;
+  constexpr int V = T::V, NW = T::NW, NWD = Bytes<V>::N;
+  constexpr int UNROLL = NW > 1 ? K1_UNROLL_BLOCK : K1_UNROLL_WARP;
+  __shared__ int wtot[2][NW];     // inclusive insertion-scan total of each warp
+  __shared__ int xfirst[2][NW];   // x of each warp's first lane
   int p, t;
-  if (!pair_thread<W>(PB, p, t)) return;
+  if (!pair_thread<T>(PB, p, t)) return;
   const int lt = t & 31, wp = t >> 5;
   const int la = la_[p], lb = lb_[p];
   const int ctr = band_centre(W, la, lb);
-  const uint8_t* ep = enc + (size_t)p * MC * W;
+  const uint8_t* ap = a + (size_t)p * La;
+  const uint8_t* bp = b + (size_t)p * Lb;
   uint8_t* dp = dirs + (size_t)p * MC * W;
+  // query index of the byte that enters this warp's last lane at column jc
+  // is edge0 + jc; the last warp's is the band's edge
+  const int edge0 = (wp + 1) * 32 * V - 1 - ctr;
+  auto qbyte = [&](int i) -> uint32_t { return (i >= 0 && i < La) ? ap[i] : PAD_BASE; };
+  // lane k of the warp: target base and entering query base of column j0+k
+  auto tile = [&](int j0) -> uint32_t {
+    const int jc = j0 + lt;
+    return (jc < Lb ? bp[jc] : PAD_TARGET) | (qbyte(edge0 + jc) << 8);
+  };
 
   int D[V];
+  Bytes<V> q;                     // query bases of this thread's lanes, column 0
+#pragma unroll
+  for (int k = 0; k < NWD; ++k) q.w[k] = 0;
 #pragma unroll
   for (int s = 0; s < V; ++s) {
     const int i0 = t * V + s - ctr;
     D[s] = (i0 >= 0 && i0 <= la) ? i0 : INF;
+    q.w[s >> 2] |= qbyte(i0 - 1) << (8 * (s & 3));
   }
-  if constexpr (NW > 1) {
-    if (lt == 0) first[wp] = D[0];
-    if (t == 0) first[NW] = INF;
-    __syncthreads();
-  }
+  const int l0 = (wp + 1) * 32 * V;   // first lane of the next warp
+  int rnext = (l0 - ctr >= 0 && l0 - ctr <= la) ? l0 - ctr : INF;
   const int ncol = lb < MC ? lb : MC;
-  for (int j = 1; j <= ncol; ++j) {
-    int e[V];
-    load_row<V>(ep + (size_t)(j - 1) * W, t, e);
-    int right = __shfl_down_sync(FULL, D[0], 1);   // lane t*V+V of this column
-    if (lt == 31) right = NW > 1 ? first[wp + 1] : INF;
-    int diag[V], left[V], x[V];
-    bool outside[V];
+  uint32_t tq_next = tile(0);
+  for (int j0 = 0; j0 < ncol; j0 += 32) {            // a tile of 32 columns
+    const uint32_t tq_cur = tq_next;
+    tq_next = tile(j0 + 32);
+    const int nc = ncol - j0 < 32 ? ncol - j0 : 32;
+#pragma unroll (UNROLL)
+    for (int c = 0; c < nc; ++c) {
+      const int j = j0 + c + 1;
+      const uint32_t tq = __shfl_sync(FULL, tq_cur, c);
+      const uint32_t pk = __shfl_down_sync(
+          FULL, (uint32_t)D[0] | ((uint32_t)q.get(0) << D_BITS), 1);
+      int right = pk & ((1u << D_BITS) - 1);          // D of lane t*V+V, last column
+      uint32_t nb = pk >> D_BITS;                     // its query base
+      if (lt == 31) {
+        right = (NW > 1 && wp < NW - 1) ? rnext : INF;
+        nb = tq >> 8;
+      }
+      q.shift_in(nb);
+      uint32_t enc[NWD];                              // ENC bytes of this column
+      const uint32_t tc4 = (tq & 0xff) * 0x01010101u;
 #pragma unroll
-    for (int s = 0; s < V; ++s) {
-      const int lane = t * V + s;
-      const int i = j - ctr + lane;
-      diag[s] = D[s] + (e[s] & 1);
-      left[s] = (s < V - 1 ? D[s + 1] : right) + 1;
-      int A = min(diag[s], left[s]);
-      if (i == 0) A = j;                   // row 0: the all-deletion path
-      outside[s] = i < 0 || i > la;
-      if (outside[s]) A = INF;
-      x[s] = A - lane;
-    }
-    // insertion chain: D[l] = min_{m <= l} (A[m] + l - m) = lane + prefix-min(x)
+      for (int k = 0; k < NWD; ++k)
+        enc[k] = bytes_ne(q.w[k], tc4) | ((q.w[k] & 0x03030303u) << 1);
+
+      int diag[V], left[V], x[V];
+      bool outside[V];
+      const int row = j - ctr + t * V;                // query row of lane t*V
 #pragma unroll
-    for (int s = 1; s < V; ++s) x[s] = min(x[s], x[s - 1]);
-    int tot = x[V - 1];
+      for (int s = 0; s < V; ++s) {
+        const int i = row + s;
+        diag[s] = D[s] + ((enc[s >> 2] >> (8 * (s & 3))) & 1);
+        left[s] = (s < V - 1 ? D[s + 1] : right) + 1;
+        int A = min(diag[s], left[s]);
+        if (i == 0) A = j;                   // row 0: the all-deletion path
+        outside[s] = (unsigned)i > (unsigned)la;      // i < 0 or i > la
+        if (outside[s]) A = INF;
+        x[s] = A - (t * V + s);
+      }
+      const int x0 = x[0];
+      // insertion chain: D[l] = min_{m <= l} (A[m] + l - m) = lane + prefix-min(x)
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(FULL, tot, off);
-      if (lt >= off) tot = min(tot, y);
-    }
-    int before = __shfl_up_sync(FULL, tot, 1);      // min of x over lanes < t*V
-    if (lt == 0) before = INF;
-    if constexpr (NW > 1) {
-      if (lt == 31) wtot[wp] = tot;
-      __syncthreads();                                // sync 1 of 2
-      for (int u = 0; u < wp; ++u) before = min(before, wtot[u]);
-    }
-    int Dn[V];
+      for (int s = 1; s < V; ++s) x[s] = min(x[s], x[s - 1]);
+      int tot = x[V - 1];
 #pragma unroll
-    for (int s = 0; s < V; ++s) {
-      Dn[s] = min(min(x[s], before) + t * V + s, INF);
-      if (outside[s]) Dn[s] = INF;
-    }
-    int up;                                           // Dn of lane t*V-1
-    if constexpr (NW > 1) {                           // from `before`: no exchange
-      const int iu = j - ctr + t * V - 1;             // query row of lane t*V-1
-      up = (t == 0 || iu < 0 || iu > la) ? INF : min(before + t * V - 1, INF);
-    } else {
-      up = __shfl_up_sync(FULL, Dn[V - 1], 1);
-      if (t == 0) up = INF;
-    }
-    int out[V];
+      for (int off = 1; off < 32; off <<= 1)          // lanes below off get their own
+        tot = min(tot, __shfl_up_sync(FULL, tot, off));
+      int before = __shfl_up_sync(FULL, tot, 1);      // min of x over lanes < t*V
+      if (lt == 0) before = INF;
+      if constexpr (NW > 1) {
+        const int par = j & 1;
+        if (lt == 31) wtot[par][wp] = tot;
+        if (lt == 0) xfirst[par][wp] = x0;
+        __syncthreads();
+        const int cross = __reduce_min_sync(FULL, lt < wp ? wtot[par][lt] : INF);
+        before = min(before, cross);
+        if (lt == 31 && wp < NW - 1) {                  // D of lane l0, this column
+          const int i = j - ctr + l0;
+          rnext = (i < 0 || i > la) ? INF
+                : min(min(min(cross, tot), xfirst[par][wp + 1]) + l0, INF);
+        }
+      }
+      int Dn[V];
 #pragma unroll
-    for (int s = 0; s < V; ++s) {
-      const int upv = (s == 0 ? up : Dn[s - 1]) + 1;
-      const int op = Dn[s] == diag[s] ? OP_DIAG
-                   : Dn[s] == upv     ? OP_INS
-                   : Dn[s] == left[s] ? OP_DEL
-                                      : OP_PAD;
-      out[s] = op | (e[s] << 2);
-      D[s] = Dn[s];
-    }
-    store_row<V>(dp + (size_t)(j - 1) * W, t, out);
-    if constexpr (NW > 1) {
-      if (lt == 0) first[wp] = D[0];
-      __syncthreads();                                // sync 2 of 2
+      for (int s = 0; s < V; ++s)
+        Dn[s] = outside[s] ? INF : min(min(x[s], before) + t * V + s, INF);
+      int up;                                           // Dn of lane t*V-1
+      if constexpr (NW > 1) {                           // from `before`: no exchange
+        const bool out = t == 0 || (unsigned)(row - 1) > (unsigned)la;  // lane t*V-1
+        up = out ? INF : min(before + t * V - 1, INF);
+      } else {
+        up = __shfl_up_sync(FULL, Dn[V - 1], 1);
+        if (t == 0) up = INF;
+      }
+      Bytes<V> out;
+#pragma unroll
+      for (int k = 0; k < NWD; ++k) out.w[k] = enc[k] << 2;
+#pragma unroll
+      for (int s = 0; s < V; ++s) {
+        const int upv = (s == 0 ? up : Dn[s - 1]) + 1;
+        // diag before ins before del, as selects (nested ?: compiled to branches)
+        uint32_t op = Dn[s] == left[s] ? OP_DEL : OP_PAD;
+        op = Dn[s] == upv ? OP_INS : op;
+        op = Dn[s] == diag[s] ? OP_DIAG : op;
+        out.w[s >> 2] |= op << (8 * (s & 3));
+        D[s] = Dn[s];
+      }
+      out.store(dp + (size_t)(j - 1) * W + t * V);
     }
   }
-  int pad[V];
-#pragma unroll
-  for (int s = 0; s < V; ++s) pad[s] = OP_PAD;
-  for (int jc = ncol; jc < MC; ++jc) store_row<V>(dp + (size_t)jc * W, t, pad);
+  fill_pad(dp, ncol > 0 ? ncol : 0, MC, W, t, 32 * NW);
 
   const int l_end = clampi(la - lb + ctr, 0, W - 1);
 #pragma unroll
@@ -274,95 +378,138 @@ banded_forward_kernel(const uint8_t* __restrict__ enc, const int* __restrict__ l
 // Replaces _backtrack_kernel / banded_backtrack_cols
 // (necat_tpu/align/pallas_banded.py): walks from (la, lb) back one target
 // column per step and emits the per-column encoding and insb words.
-// Bound: latency. Every step depends on the previous step's slot, and each
-// step reads one dirs row. Per column, the run of insertions under the
-// current slot `cur` ends at sel, the highest non-insertion lane at or below
-// it: a __reduce_max_sync in each warp, then a max over the warps' results
-// in shared memory (wmax[]) that every thread takes, so `cur`, which follows
-// from sel, is the same in every thread. The inserted bases of the run are
-// packed with one __reduce_or_sync per insb word (their bit fields are
-// disjoint), then an OR over the warps in shared memory (wor[]) by thread 0,
-// which writes the column. __syncthreads per column: none with a warp per
-// pair, 2 with a block per pair (after the warps' maxima, after the warps'
-// insb words).
+// Bound: latency. Every step depends on the previous step's slot `cur`, so
+// the design keeps the step short:
+//  - the dirs rows of the columns ahead (their addresses do not depend on
+//    the walk) stream into a shared-memory ring of 2 x H rows per pair with
+//    cp.async, one half in flight while the other is walked; a thread's V
+//    bytes of the next row are read from the ring one step ahead;
+//  - the run of insertions under `cur` ends at sel, the highest non-INS lane
+//    at or below it; each thread packs (its candidate lane + 1) << 8 | its
+//    byte there, so one __reduce_max_sync (and with a block per pair a
+//    second one over the warps' maxima in a parity double buffer, one
+//    __syncthreads per step) gives both sel and the byte at sel, with no
+//    dependent load;
+//  - the inserted bases of the run are read from the ring row by lanes 0..20
+//    of one warp (rank d+1 from the run start, rank d from its end) and
+//    packed with one __reduce_or_sync per insb word;
+//  - lane s%32 keeps step s's cols and insb words, and each 32 steps the
+//    warp stores them as one coalesced 128-byte store per output.
 template <int W>
-__global__ void __launch_bounds__(Tiling<W>::THREADS)
+__global__ void __launch_bounds__(Tiling<W, K3_WIDE_MIN>::THREADS)
 banded_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict__ la_,
                         const int* __restrict__ lb_, int* __restrict__ cols,
                         int* __restrict__ insb, int* __restrict__ lead, int PB,
                         int MC, int words) {
-  constexpr int V = Tiling<W>::V, NW = Tiling<W>::NW;
-  __shared__ int wmax[NW];
-  __shared__ unsigned wor[3][NW];
+  using T = Tiling<W, K3_WIDE_MIN>;
+  constexpr int V = T::V, NW = T::NW;
+  constexpr int H = 16384 / (W * T::PAIRS) < 16 ? 16384 / (W * T::PAIRS) : 16;
+  constexpr int RING = 2 * H;                      // rows: <= 32 KB of ring a block
+  constexpr int PIECES = H * W / 16;               // 16-byte copies per half
+  __shared__ __align__(16) uint8_t ring_all[T::PAIRS][RING][W];
+  __shared__ int wkey[2][NW];
   int p, t;
-  if (!pair_thread<W>(PB, p, t)) return;
+  if (!pair_thread<T>(PB, p, t)) return;
   const int lt = t & 31, wp = t >> 5;
+  uint8_t (*ring)[W] = ring_all[NW > 1 ? 0 : (threadIdx.x >> 5)];
   const int la = la_[p], lb = lb_[p];
   const int ctr = band_centre(W, la, lb);
   const uint8_t* dp = dirs + (size_t)p * MC * W;
   int* cp = cols + (size_t)p * MC;
   const int ncol = lb < MC ? lb : MC;
-  for (int jc = ncol + t; jc < MC; jc += 32 * NW) {
+  for (int jc = (ncol > 0 ? ncol : 0) + t; jc < MC; jc += 32 * NW) {
     cp[jc] = OP_PAD;
     for (int w = 0; w < words; ++w) insb[((size_t)w * PB + p) * MC + jc] = 0;
   }
+  auto sync = [&] {
+    if constexpr (NW > 1) __syncthreads(); else __syncwarp();
+  };
+  // walk steps chunk*H .. chunk*H+H-1 (rows ncol-1-step) into ring half chunk%2
+  auto fetch = [&](int chunk) {
+    for (int k = t; k < PIECES; k += 32 * NW) {
+      const int i = k / (W / 16), off = (k % (W / 16)) * 16;
+      const int s = chunk * H + i, r = ncol - 1 - s;
+      if (r >= 0) cp_async16(&ring[s % RING][off], dp + (size_t)r * W + off);
+    }
+    cp_async_commit();
+  };
+
   int cur = clampi(la - lb + ctr, 0, W - 1);
-  for (int j = ncol; j >= 1; --j) {
-    const uint8_t* row = dp + (size_t)(j - 1) * W;
-    int v[V];
-    load_row<V>(row, t, v);
-    int best = -1;
+  Bytes<V> vn;
+  if (ncol > 0) {
+    fetch(0);
+    fetch(1);
+    cp_async_wait_one_pending();
+    sync();
+    vn.load(&ring[0][t * V]);
+  }
+  const bool emits = NW == 1 || wp == 0;          // the warp that writes cols/insb
+  int colv = 0, insv0 = 0, insv1 = 0, insv2 = 0;  // lane s%32 keeps step s
+  for (int s = 0; s < ncol; ++s) {
+    const int j = ncol - s;                         // 1-based column
+    const Bytes<V> v = vn;
+    const bool boundary = s + 1 < ncol && (s + 1) % H == 0;
+    if (s + 1 < ncol && !boundary) vn.load(&ring[(s + 1) % RING][t * V]);
+    int key = 0;                                    // (lane + 1) << 8 | byte
 #pragma unroll
-    for (int s = 0; s < V; ++s) {
-      const int lane = t * V + s;
-      if (lane <= cur && (v[s] & 3) != OP_INS) best = lane;
+    for (int u = 0; u < V; ++u) {
+      const int lane = t * V + u, byte = v.get(u);
+      if (lane <= cur && (byte & 3) != OP_INS) key = ((lane + 1) << 8) | byte;
     }
-    int sel = __reduce_max_sync(FULL, best);         // -1: insertions down to lane 0
+    key = __reduce_max_sync(FULL, key);
     if constexpr (NW > 1) {
-      if (lt == 0) wmax[wp] = sel;
-      __syncthreads();                                // sync 1 of 2
-#pragma unroll
-      for (int u = 0; u < NW; ++u) sel = max(sel, wmax[u]);
+      const int par = s & 1;
+      if (lt == 0) wkey[par][wp] = key;
+      __syncthreads();
+      key = __reduce_max_sync(FULL, lt < NW ? wkey[par][lt] : 0);
     }
+    const int sel = (key >> 8) - 1, vsel = key & 0xff;   // sel -1: all INS
     const int k = cur - sel;
-    const int vsel = sel >= 0 ? row[sel] : 0;
     int o = vsel & 3;
     if (j - ctr + sel <= 0) o = OP_DEL;              // row 0: all-deletion border
-    const int match = o == OP_DIAG ? 1 - ((vsel >> 2) & 1) : 0;
-    const int qbase = o == OP_DIAG ? (vsel >> 3) & 3 : 0;
-    const int kc = min(k, N_INSB * words);
-    for (int w = 0; w < words; ++w) {
-      const int d0 = N_INSB * w;
-      const int hi = min(kc, d0 + N_INSB);
+    if (emits) {
+      const int match = o == OP_DIAG ? 1 - ((vsel >> 2) & 1) : 0;
+      const int qbase = o == OP_DIAG ? (vsel >> 3) & 3 : 0;
+      const int c = s & 31;
+      if (lt == c) colv = (k << 5) | (qbase << 3) | (match << 2) | o;
+      // lane d: run rank d+1 from the start (lane sel+d+1) and rank d from
+      // the end (lane cur-d), both into word d/7
+      const int kc = min(k, N_INSB * words);
+      const uint8_t* row = ring[s % RING];
       unsigned bits = 0;
-#pragma unroll
-      for (int s = 0; s < V; ++s) {
-        const int lane = t * V + s;
-        const unsigned qb = (v[s] >> 3) & 3;
-        const int df = lane - sel;                   // 1-based rank from the run start
-        const int db = cur - lane;                   // 0-based rank from the run end
-        if (df >= d0 + 1 && df <= hi) bits |= qb << (2 * (df - 1 - d0));
-        if (db >= d0 && db < hi) bits |= qb << (14 + 2 * (db - d0));
+      if (lt < kc) {
+        const int d = lt % N_INSB;
+        bits = ((row[sel + 1 + lt] >> 3) & 3u) << (2 * d)
+             | ((row[cur - lt] >> 3) & 3u) << (14 + 2 * d);
       }
-      bits = __reduce_or_sync(FULL, bits);
-      if constexpr (NW > 1) {
-        if (lt == 0) wor[w][wp] = bits;
-      } else {
-        if (t == 0) insb[((size_t)w * PB + p) * MC + (j - 1)] = (int)bits;
+      const int wd = lt / N_INSB;
+      const unsigned b0 = __reduce_or_sync(FULL, wd == 0 ? bits : 0u);
+      if (lt == c) insv0 = (int)b0;
+      if (words > 1) {
+        const unsigned b1 = __reduce_or_sync(FULL, wd == 1 ? bits : 0u);
+        if (lt == c) insv1 = (int)b1;
       }
-    }
-    if constexpr (NW > 1) {
-      __syncthreads();                                // sync 2 of 2
-      if (t == 0) {
-        for (int w = 0; w < words; ++w) {
-          unsigned bits = 0;
-          for (int u = 0; u < NW; ++u) bits |= wor[w][u];
-          insb[((size_t)w * PB + p) * MC + (j - 1)] = (int)bits;
+      if (words > 2) {
+        const unsigned b2 = __reduce_or_sync(FULL, wd == 2 ? bits : 0u);
+        if (lt == c) insv2 = (int)b2;
+      }
+      if (c == 31 || s == ncol - 1) {                // the tile's columns, one store each
+        if (lt <= c) {
+          const int jc = ncol - 1 - (s - c + lt);
+          cp[jc] = colv;
+          insb[(size_t)p * MC + jc] = insv0;
+          if (words > 1) insb[((size_t)PB + p) * MC + jc] = insv1;
+          if (words > 2) insb[((size_t)2 * PB + p) * MC + jc] = insv2;
         }
       }
     }
-    if (t == 0) cp[j - 1] = (k << 5) | (qbase << 3) | (match << 2) | o;
     cur = clampi(o == OP_DIAG ? sel : sel + 1, 0, W - 1);
+    if (boundary) {                                   // next half landed; refill this one
+      cp_async_wait_all();
+      sync();
+      fetch((s + 1) / H + 1);
+      vn.load(&ring[(s + 1) % RING][t * V]);
+    }
   }
   if (t == 0) lead[p] = clampi(cur - ctr, 0, la);
 }
@@ -384,10 +531,11 @@ int dispatch_width(int W, Args... args) {
 
 template <int W>
 struct ForwardLaunch {
-  static void run(const uint8_t* enc, const int* la, const int* lb, uint8_t* dirs,
-                  int* cost, int PB, int MC, cudaStream_t s) {
-    banded_forward_kernel<W><<<Tiling<W>::blocks(PB), Tiling<W>::THREADS, 0, s>>>(
-        enc, la, lb, dirs, cost, PB, MC);
+  static void run(const uint8_t* a, int La, const uint8_t* b, int Lb, const int* la,
+                  const int* lb, uint8_t* dirs, int* cost, int PB, int MC, cudaStream_t s) {
+    using T = Tiling<W, K1_WIDE_MIN>;
+    banded_forward_kernel<W><<<T::blocks(PB), T::THREADS, 0, s>>>(
+        a, La, b, Lb, la, lb, dirs, cost, PB, MC);
   }
 };
 
@@ -395,7 +543,8 @@ template <int W>
 struct BacktrackLaunch {
   static void run(const uint8_t* dirs, const int* la, const int* lb, int* cols,
                   int* insb, int* lead, int PB, int MC, int words, cudaStream_t s) {
-    banded_backtrack_kernel<W><<<Tiling<W>::blocks(PB), Tiling<W>::THREADS, 0, s>>>(
+    using T = Tiling<W, K3_WIDE_MIN>;
+    banded_backtrack_kernel<W><<<T::blocks(PB), T::THREADS, 0, s>>>(
         dirs, la, lb, cols, insb, lead, PB, MC, words);
   }
 };
@@ -418,17 +567,18 @@ int necat_diag_sub_matrix(const void* a, int La, const void* b, int Lb,
   return (int)cudaGetLastError();
 }
 
-int necat_banded_forward(const void* enc, const void* la, const void* lb,
-                         void* dirs, void* cost, int PB, int MC, int W,
+int necat_banded_forward(const void* a, int La, const void* b, int Lb, const void* la,
+                         const void* lb, void* dirs, void* cost, int PB, int MC, int W,
                          void* stream) {
   return dispatch_width<ForwardLaunch>(
-      W, (const uint8_t*)enc, (const int*)la, (const int*)lb, (uint8_t*)dirs,
-      (int*)cost, PB, MC, (cudaStream_t)stream);
+      W, (const uint8_t*)a, La, (const uint8_t*)b, Lb, (const int*)la, (const int*)lb,
+      (uint8_t*)dirs, (int*)cost, PB, MC, (cudaStream_t)stream);
 }
 
 int necat_banded_backtrack(const void* dirs, const void* la, const void* lb,
                            void* cols, void* insb, void* lead, int PB, int MC,
                            int W, int words, void* stream) {
+  if (words < 1 || words > 3) return (int)cudaErrorInvalidValue;
   return dispatch_width<BacktrackLaunch>(
       W, (const uint8_t*)dirs, (const int*)la, (const int*)lb, (int*)cols,
       (int*)insb, (int*)lead, PB, MC, words, (cudaStream_t)stream);

@@ -2,10 +2,10 @@
 hash, a top-bits bucket directory and per-entry run ends, on the device.
 
 Counterpart of necat_tpu/index/kmer_index.py. The index is built on the host
-as the JAX package's CPU path builds it (the native radix sort of
-necat_tpu.native, or a NumPy sort without it), then moved to the device;
-index_from_numpy takes the JAX package's index arrays as they are, so both
-packages can query one index. k-mers occurring more than occ_cutoff times
+by the native radix sort (necat_tpu_torch/native.py; _build_numpy is its
+plain NumPy version, which the tests hold it against), then moved to the
+device; index_from_numpy takes index arrays as they are, so that the tests
+can hand both packages one index. k-mers occurring more than occ_cutoff times
 are disabled at query time (lookup_table.c:14-57 kmer_cnt_cutoff).
 """
 
@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from necat_tpu import native
+from necat_tpu_torch import native
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -38,11 +38,7 @@ class KmerIndex:
         if k > 15:
             raise ValueError("k must fit 30 bits (int32 hashes)")
         n_bucket_bits = min(n_bucket_bits, 2 * k)
-        nat = native.build_kmer_index(bases, offsets, k, n_bucket_bits)
-        if nat is not None:
-            sh, sp, bucket_starts = nat
-        else:
-            sh, sp, bucket_starts = _build_numpy(bases, offsets, k, n_bucket_bits)
+        sh, sp, bucket_starts = native.build_kmer_index(bases, offsets, k, n_bucket_bits)
         return index_from_numpy(k=k, occ_cutoff=occ_cutoff,
                                 n_bucket_bits=n_bucket_bits, sorted_hashes=sh,
                                 sorted_positions=sp, bucket_starts=bucket_starts,
@@ -74,8 +70,8 @@ class KmerIndex:
 def index_from_numpy(*, k, occ_cutoff, n_bucket_bits, sorted_hashes,
                      sorted_positions, bucket_starts, run_end, n_search_steps,
                      device) -> KmerIndex:
-    """KmerIndex on `device` from host arrays (e.g. np.asarray of the JAX
-    package's KmerIndex fields)."""
+    """KmerIndex on `device` from host arrays (the tests hand it the JAX
+    package's index fields as numpy arrays)."""
     dev = resolve_device(device)
     as_dev = lambda x: torch.as_tensor(np.asarray(x).astype(np.int32), device=dev)
     return KmerIndex(k=int(k), occ_cutoff=int(occ_cutoff),
@@ -87,8 +83,8 @@ def index_from_numpy(*, k, occ_cutoff, n_bucket_bits, sorted_hashes,
 
 
 def _build_numpy(bases, offsets, k, n_bucket_bits):
-    """NumPy fallback of the native build: stable sort by hash, so positions
-    ascend within a hash."""
+    """Plain NumPy version of the native build: stable sort by hash, so
+    positions ascend within a hash."""
     n = len(bases) - k + 1
     h = np.zeros(max(n, 0), dtype=np.int64)
     for j in range(k):

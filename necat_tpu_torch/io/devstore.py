@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from necat_tpu.io.readstore import ReadStore, pack_2bit
+from necat_tpu_torch.io.readstore import ReadStore, pack_2bit
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -20,6 +20,9 @@ class DeviceReadStore:
     int64[n_reads + 1], since row descriptors are built on the host."""
 
     def __init__(self, store: ReadStore, device):
+        if not isinstance(store, ReadStore):
+            raise TypeError(f"DeviceReadStore takes necat_tpu_torch's ReadStore, not "
+                            f"{type(store).__module__}.{type(store).__name__}")
         if store.total_bases >= (1 << 31):
             raise ValueError("DeviceReadStore requires < 2^31 bases")
         self.device = resolve_device(device)

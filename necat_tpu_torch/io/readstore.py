@@ -1,0 +1,163 @@
+"""ReadStore: a flat store of 2-bit-encodable reads (the port's copy of
+necat_tpu/io/readstore.py, the part the port uses).
+
+Sequences are one concatenated uint8 code array (values 0..3) plus int64
+offsets (the role of the reference's PackedDB, src/common/packed_db.{h,c});
+pack_2bit gives the device store's 16-bases-per-word layout. FASTA/FASTQ
+files are parsed by the native library (necat_tpu_torch/native.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+
+from necat_tpu_torch import native
+from necat_tpu_torch.io import seqio
+
+
+@dataclasses.dataclass
+class ReadStore:
+    """Flat concatenated read set.
+
+    Attributes:
+      bases: uint8[total_bases], codes 0..3.
+      offsets: int64[n_reads + 1], read i occupies bases[offsets[i]:offsets[i+1]].
+      names: list of read names (may be empty strings for anonymous reads).
+    """
+
+    bases: np.ndarray
+    offsets: np.ndarray
+    names: List[str]
+
+    @property
+    def n_reads(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def total_bases(self) -> int:
+        return int(self.offsets[-1])
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return np.diff(self.offsets).astype(np.int64)
+
+    def __len__(self) -> int:
+        return self.n_reads
+
+    def get(self, i: int, rc: bool = False) -> np.ndarray:
+        s = self.bases[self.offsets[i]:self.offsets[i + 1]]
+        return seqio.revcomp(s) if rc else s
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(self.n_reads):
+            yield self.get(i)
+
+    @classmethod
+    def from_seqs(cls, seqs: Sequence[np.ndarray], names: Sequence[str] | None = None) -> "ReadStore":
+        lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+        offsets = np.zeros(len(seqs) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        bases = np.concatenate([np.asarray(s, dtype=np.uint8) for s in seqs]) if seqs else np.zeros(0, np.uint8)
+        if names is None:
+            names = [str(i) for i in range(len(seqs))]
+        return cls(bases=bases, offsets=offsets, names=list(names))
+
+    @classmethod
+    def concat(cls, stores: Sequence["ReadStore"]) -> "ReadStore":
+        """Merge stores with one array concatenation per field."""
+        stores = list(stores)
+        if len(stores) == 1:
+            return stores[0]
+        if not stores:
+            return cls(bases=np.zeros(0, np.uint8),
+                       offsets=np.zeros(1, np.int64), names=[])
+        bases = np.concatenate([s.bases for s in stores])
+        sizes = np.concatenate([s.lengths for s in stores])
+        offsets = np.zeros(len(sizes) + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        names = [n for s in stores for n in s.names]
+        return cls(bases=bases, offsets=offsets, names=names)
+
+    @classmethod
+    def from_fasta(cls, path: str | os.PathLike, min_length: int = 0) -> "ReadStore":
+        names, bases, offsets = native.read_seq_file(os.fspath(path))
+        store = cls(bases=bases, offsets=offsets, names=names)
+        if min_length > 0:
+            keep = np.flatnonzero(store.lengths >= min_length)
+            if len(keep) != store.n_reads:
+                store = store.subset(keep)
+        return store
+
+    def to_fasta(self, path: str | os.PathLike) -> None:
+        seqio.write_fasta(path, self.names, list(self))
+
+    def subset(self, idx: np.ndarray) -> "ReadStore":
+        """Gather a sub-store in one vectorised pass."""
+        idx = np.asarray(idx, dtype=np.int64)
+        lens = self.lengths[idx]
+        offsets = np.zeros(len(idx) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        total = int(offsets[-1])
+        src = (np.repeat(self.offsets[idx], lens)
+               + np.arange(total, dtype=np.int64)
+               - np.repeat(offsets[:-1], lens))
+        names = [self.names[int(i)] for i in idx]
+        return ReadStore(bases=self.bases[src], offsets=offsets, names=names)
+
+    def n50(self) -> Tuple[int, int]:
+        """(N50 length, number of reads >= N50) (fsa_rd_tools n50,
+        src/fsa/read_tools.cpp)."""
+        ls = np.sort(self.lengths)[::-1]
+        if len(ls) == 0:
+            return 0, 0
+        half = ls.sum() / 2
+        c = np.cumsum(ls)
+        i = int(np.searchsorted(c, half))
+        return int(ls[i]), i + 1
+
+    def longest_to_coverage(self, genome_size: int, coverage: float) -> np.ndarray:
+        """Indices of the longest reads whose total is ~genome_size*coverage
+        bases (fsa_rd_tools longest, src/fsa/read_tools.cpp:33)."""
+        target = int(genome_size * coverage)
+        order = np.argsort(self.lengths, kind="stable")[::-1]
+        csum = np.cumsum(self.lengths[order])
+        n_keep = int(np.searchsorted(csum, target)) + 1
+        n_keep = min(n_keep, self.n_reads)
+        return np.sort(order[:n_keep])
+
+    def padded_batch(self, idx: np.ndarray, pad_to: int | None = None,
+                     multiple: int = 128, rc: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """Reads idx as a [B, L] uint8 array padded with 0, and their lengths."""
+        idx = np.asarray(idx, dtype=np.int64)
+        lens = self.lengths[idx]
+        L = int(lens.max()) if pad_to is None else pad_to
+        L = -(-L // multiple) * multiple
+        out = np.zeros((len(idx), L), dtype=np.uint8)
+        take = np.minimum(lens, L)
+        total = int(take.sum())
+        rows = np.repeat(np.arange(len(idx), dtype=np.int64), take)
+        cols = (np.arange(total, dtype=np.int64)
+                - np.repeat(np.cumsum(take) - take, take))
+        if rc:
+            src = np.repeat(self.offsets[idx] + lens - 1, take) - cols
+            out[rows, cols] = 3 - self.bases[src]
+        else:
+            src = np.repeat(self.offsets[idx], take) + cols
+            out[rows, cols] = self.bases[src]
+        return out, lens.astype(np.int32)
+
+
+def pack_2bit(bases: np.ndarray) -> np.ndarray:
+    """Pack uint8 codes 0..3 into uint32 words, 16 bases per word, base 0 in the
+    high bits (the _set_pac bit layout, src/common/ontcns_aux.h:118)."""
+    n = len(bases)
+    n_pad = -(-n // 16) * 16
+    b = np.zeros(n_pad, dtype=np.uint32)
+    b[:n] = bases
+    b = b.reshape(-1, 16)
+    shifts = np.arange(15, -1, -1, dtype=np.uint32) * 2
+    return (b << shifts).sum(axis=1, dtype=np.uint32)

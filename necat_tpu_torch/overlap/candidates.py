@@ -14,9 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from necat_tpu.overlap.options import MapOptions
 from necat_tpu_torch.index.kmer_index import KmerIndex, query_kmer_hashes
 from necat_tpu_torch.overlap.chain import chain_pairs
+from necat_tpu_torch.overlap.options import MapOptions
 
 MAX_PAIRS_CEILING = 1 << 18   # the JAX package's escalation ceilings
 MAX_CHAIN_CEILING = 1 << 17

@@ -10,16 +10,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from necat_tpu.io.readstore import ReadStore
-from necat_tpu.overlap.m4 import M4Records
-from necat_tpu.overlap.options import MapOptions
-from necat_tpu.utils import shapes
 from necat_tpu_torch.align.engine import (ExtendEngine, collect_stats, new_stats,
                                           rescue_widths)
 from necat_tpu_torch.index.kmer_index import KmerIndex
 from necat_tpu_torch.io.devstore import DeviceReadStore
+from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import (Candidates, candidates_forward,
                                                 stats_to_candidates, top_n_per_query)
+from necat_tpu_torch.overlap.m4 import M4Records
+from necat_tpu_torch.overlap.options import MapOptions
+from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -34,6 +34,9 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
     word_finder.c:121-127). Queries run in batches of query_batch_size in
     ascending length order, both strands per batch; the best opts.ncan
     candidates per query are kept (pm_worker.c:163-186)."""
+    if not isinstance(opts, MapOptions):
+        raise TypeError(f"find_all_candidates takes necat_tpu_torch's MapOptions, not "
+                        f"{type(opts).__module__}.{type(opts).__name__}")
     dev = resolve_device(device)
     if index is None:
         index = KmerIndex.build(sstore.bases, sstore.offsets, device=dev,

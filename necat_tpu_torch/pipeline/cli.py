@@ -12,9 +12,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from necat_tpu.pipeline import config as config_mod
-from necat_tpu.utils.logging import logger
+from necat_tpu_torch.pipeline import config as config_mod
 from necat_tpu_torch.pipeline.stages import Project
+from necat_tpu_torch.utils.logging import logger
 
 NOT_PORTED = ("assemble", "bridge")
 

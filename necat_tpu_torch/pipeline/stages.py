@@ -19,15 +19,15 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from necat_tpu.consensus.options import CnsOptions
-from necat_tpu.io.readstore import ReadStore
-from necat_tpu.overlap.options import MapOptions
-from necat_tpu.pipeline.config import Config
-from necat_tpu.utils.logging import logger
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.correct import correct_reads
+from necat_tpu_torch.consensus.options import CnsOptions
+from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
+from necat_tpu_torch.overlap.options import MapOptions
 from necat_tpu_torch.overlap.overlapper import find_all_candidates
+from necat_tpu_torch.pipeline.config import Config
+from necat_tpu_torch.utils.logging import logger
 
 
 def _fingerprint(paths: List[str]) -> str:

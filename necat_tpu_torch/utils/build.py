@@ -24,10 +24,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p, sizes as c_int)
     "necat_diag_sub_matrix": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "necat_banded_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "necat_banded_forward": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "necat_banded_backtrack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -65,7 +65,7 @@ def build_library() -> Path:
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

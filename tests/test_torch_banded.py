@@ -10,12 +10,12 @@ import torch
 from necat_tpu.align import banded as jbanded
 from necat_tpu.align import engine as jengine
 from necat_tpu.align import pallas_banded as jpb
-from necat_tpu.io import simulate
 from necat_tpu.io.devstore import DeviceReadStore as JaxDeviceReadStore
-from necat_tpu.io.readstore import ReadStore
 from necat_tpu_torch.align import banded, banded_kernels as bk, engine
+from necat_tpu_torch.io import simulate
 from necat_tpu_torch.io.devstore import DeviceReadStore
-from torch_port_helpers import band_pairs, extension_batch, jax_static_band  # noqa: F401
+from torch_port_helpers import (band_pairs, both_stores, extension_batch,  # noqa: F401
+                                jax_static_band, jax_static_band_wide)
 
 T = torch.from_numpy
 
@@ -46,8 +46,28 @@ def test_banded_forward_matches_pallas(W, clamp):
         assert (la > 2 * lb).any()
     dirs_j, _, _, cost_j = jpb.banded_forward_pallas(
         *[jnp.asarray(x) for x in (a, b, la, lb)], W, L, interpret=True)
-    enc = bk.diag_sub_matrix(T(a), T(b), T(la), T(lb), W, L)
-    dirs, cost = bk.banded_forward(enc, T(la), T(lb), W)
+    dirs, cost = bk.banded_forward(T(a), T(b), T(la), T(lb), W)
+    np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_j))
+    np.testing.assert_array_equal(cost.numpy(), np.asarray(cost_j))
+
+
+@pytest.mark.parametrize("W", [64, 128, 512])
+def test_banded_forward_reads_rows_as_pallas(jax_static_band_wide, W):
+    """K1 from the query and target rows reads them as the JAX package's ENC
+    builder does: bases past la and lb are read as they are (not as
+    padding), target columns past b's width as padding (max_cols > Lb). At
+    W = 512 the JAX ENC comes from the Pallas K2 in interpret mode."""
+    PB, L = (16, 512) if W < 512 else (8, 1024)
+    a, b, la, lb = band_pairs(W + 3, PB, L, W)
+    rng = np.random.default_rng(W)
+    for i in range(PB):
+        a[i, la[i]:] = rng.integers(0, 4, L - la[i])
+        b[i, lb[i]:] = rng.integers(0, 4, L - lb[i])
+    b = np.ascontiguousarray(b[:, :3 * L // 4])
+    assert (lb > b.shape[1]).any() and (la < L).all()
+    dirs_j, _, _, cost_j = jpb.banded_forward_pallas(
+        *[jnp.asarray(x) for x in (a, b, la, lb)], W, L, interpret=True)
+    dirs, cost = bk.banded_forward(T(a), T(b), T(la), T(lb), W, max_cols=L)
     np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_j))
     np.testing.assert_array_equal(cost.numpy(), np.asarray(cost_j))
 
@@ -101,13 +121,13 @@ def test_engine_submit_collect_stats_matches_jax(jax_static_band):
     qry = [simulate.mutate(t, em, rng) for t in subj]
     qdir = np.arange(n) % 2
     stored = [(3 - q[::-1]).astype(np.uint8) if d else q for q, d in zip(qry, qdir)]
-    rs = ReadStore.from_seqs(subj + stored)
+    jrs, rs = both_stores(subj + stored)
     qsize = np.array([len(q) for q in qry], np.int64)
     tsize = np.array([len(t) for t in subj], np.int64)
     args = (np.arange(n), np.arange(n, 2 * n), qdir, qsize, rs.offsets[:n],
             tsize, qsize // 2, tsize // 2, 64)
     groups = np.arange(n) // 5
-    jeng = jengine.ExtendEngine(*[JaxDeviceReadStore(rs)] * 2, pairs_per_chunk=3)
+    jeng = jengine.ExtendEngine(*[JaxDeviceReadStore(jrs)] * 2, pairs_per_chunk=3)
     jchunks = jeng.submit(*args, groups=groups)
     teng = engine.ExtendEngine(*[DeviceReadStore(rs, "cpu")] * 2, pairs_per_chunk=3)
     tchunks = teng.submit(*args, groups=groups)
@@ -135,4 +155,4 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         bk.diag_sub_matrix(a, a, la, la, 64, 64)
     with pytest.raises(ValueError):
-        bk.banded_forward(a.reshape(8, 1, 64), la.to("meta"), la.to("meta"), 64)
+        bk.banded_forward(a, a, la.to("meta"), la.to("meta"), 64)

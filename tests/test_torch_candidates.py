@@ -11,10 +11,10 @@ from necat_tpu.index.kmer_index import KmerIndex as JaxKmerIndex
 from necat_tpu.index.kmer_index import _lookup_ranges
 from necat_tpu.overlap import overlapper as joverlapper
 from necat_tpu.overlap.chain import chain_pairs as jchain_pairs
-from necat_tpu_torch.index.kmer_index import KmerIndex, index_from_numpy
+from necat_tpu_torch.index.kmer_index import KmerIndex, _build_numpy, index_from_numpy
 from necat_tpu_torch.overlap.chain import chain_pairs
 from necat_tpu_torch.overlap.overlapper import find_all_candidates
-from torch_port_helpers import SMALL_MAP_OPTIONS, small_store
+from torch_port_helpers import SMALL_MAP_OPTIONS, as_jax, small_store
 
 
 def _shared_index(rs, opts):
@@ -36,9 +36,9 @@ def _key_set(c):
 
 
 def test_find_all_candidates_matches_jax():
-    rs = small_store()
+    jrs, rs = small_store()
     jidx, tidx = _shared_index(rs, SMALL_MAP_OPTIONS)
-    cj = joverlapper.find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True,
+    cj = joverlapper.find_all_candidates(jrs, jrs, as_jax(SMALL_MAP_OPTIONS), pairwise=True,
                                          index=jidx)
     ct = find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True, device="cpu",
                              index=tidx)
@@ -52,7 +52,7 @@ def test_find_all_candidates_matches_jax():
 
 
 def test_lookup_ranges_matches_jax():
-    rs = small_store()
+    _, rs = small_store()
     jidx, tidx = _shared_index(rs, SMALL_MAP_OPTIONS)
     rng = np.random.default_rng(1)
     sh = np.asarray(jidx.sorted_hashes)
@@ -95,7 +95,7 @@ def test_chain_pairs_matches_jax(S):
 def test_candidates_swap_roles_matches_jax():
     from necat_tpu.overlap.candidates import Candidates as JaxCandidates
     from necat_tpu_torch.overlap.candidates import Candidates
-    rs = small_store()
+    _, rs = small_store()
     c = find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True, device="cpu")
     jc = JaxCandidates(*[getattr(c, f.name) for f in dataclasses.fields(Candidates)])
     for a, b in ((c.swap_roles(), jc.swap_roles()),
@@ -104,14 +104,17 @@ def test_candidates_swap_roles_matches_jax():
             np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
 
 
-def test_index_build_without_native_library(monkeypatch):
-    """The NumPy build (used where the native library cannot be built) gives
-    the native build's index."""
-    from necat_tpu import native
-    rs = small_store(G=6000, coverage=3)
+def test_index_build_without_native_library():
+    """The plain NumPy build (_build_numpy) gives the index that
+    KmerIndex.build makes with the port's native radix sort."""
+    from necat_tpu_torch.index.kmer_index import _run_ends, _search_steps
+    _, rs = small_store(G=6000, coverage=3)
     with_native = KmerIndex.build(rs.bases, rs.offsets, device="cpu", k=13)
-    monkeypatch.setattr(native, "build_kmer_index", lambda *a, **k: None)
-    without = KmerIndex.build(rs.bases, rs.offsets, device="cpu", k=13)
+    sh, sp, bs = _build_numpy(rs.bases, rs.offsets, 13, with_native.n_bucket_bits)
+    without = index_from_numpy(k=13, occ_cutoff=with_native.occ_cutoff,
+                               n_bucket_bits=with_native.n_bucket_bits, sorted_hashes=sh,
+                               sorted_positions=sp, bucket_starts=bs, run_end=_run_ends(sh),
+                               n_search_steps=_search_steps(bs), device="cpu")
     for f in ("sorted_hashes", "sorted_positions", "bucket_starts", "run_end"):
         np.testing.assert_array_equal(getattr(without, f).numpy(),
                                       getattr(with_native, f).numpy())

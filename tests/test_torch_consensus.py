@@ -12,15 +12,15 @@ from necat_tpu.consensus import backbone as jbackbone
 from necat_tpu.consensus import correct as jcorrect
 from necat_tpu.consensus import fused as jfused
 from necat_tpu.consensus import tags as jtags
-from necat_tpu.consensus.options import CnsOptions
 from necat_tpu.overlap import overlapper as joverlapper
 from necat_tpu.overlap.candidates import Candidates as JaxCandidates
 from necat_tpu_torch.align import banded
 from necat_tpu_torch.consensus import backbone, fused, tags
 from necat_tpu_torch.consensus.correct import correct_reads
+from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.overlap.overlapper import find_all_candidates
-from torch_port_helpers import (SMALL_MAP_OPTIONS, extension_batch,  # noqa: F401
+from torch_port_helpers import (SMALL_MAP_OPTIONS, as_jax, extension_batch,  # noqa: F401
                                 jax_static_band, small_store)
 
 T = torch.from_numpy
@@ -91,7 +91,7 @@ def test_cutoff_from_idents_matches_jax():
 
 
 def test_correct_reads_refuses_unported_modes():
-    rs = small_store(G=6000, coverage=2)
+    jrs, rs = small_store(G=6000, coverage=2)
     empty = Candidates.concat([])
     for opts in (CnsOptions(small_memory=True), CnsOptions(fused=False),
                  CnsOptions(max_delta=11)):
@@ -99,16 +99,20 @@ def test_correct_reads_refuses_unported_modes():
             correct_reads(rs, empty, opts, device="cpu")
     with pytest.raises(NotImplementedError):
         correct_reads(rs, empty, CnsOptions(), device=["cpu", "cpu"])
+    for store, opts in ((jrs, CnsOptions()), (rs, as_jax(CnsOptions()))):
+        with pytest.raises(TypeError):                 # the JAX package's objects
+            correct_reads(store, empty, opts, device="cpu")
 
 
 def test_correction_slice_matches_jax_static_band(jax_static_band):
     """The slice end to end: find_all_candidates -> swap_roles ->
     correct_reads in each package; records identical (tid, left, right,
     corrected, seq)."""
-    rs = small_store()
+    jrs, rs = small_store()
     co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32)
-    cj = joverlapper.find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True)
-    recs_j = jcorrect.correct_reads(rs, JaxCandidates.concat([cj, cj.swap_roles()]), co)
+    cj = joverlapper.find_all_candidates(jrs, jrs, as_jax(SMALL_MAP_OPTIONS), pairwise=True)
+    recs_j = jcorrect.correct_reads(jrs, JaxCandidates.concat([cj, cj.swap_roles()]),
+                                    as_jax(co))
     ct = find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True, device="cpu")
     for f in dataclasses.fields(Candidates):
         np.testing.assert_array_equal(getattr(ct, f.name), getattr(cj, f.name))
@@ -125,7 +129,7 @@ def test_correction_slice_matches_jax_static_band(jax_static_band):
 def test_correction_options_match_jax_static_band(jax_static_band):
     """The other correct_reads options the port keeps: fixed identity cutoff
     (no round 0), two buckets per supergroup, whole-read output (-f 1)."""
-    rs = small_store(G=6000, gseed=77, rseed=78, coverage=5)
+    jrs, rs = small_store(G=6000, gseed=77, rseed=78, coverage=5)
     co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32,
                     buckets_per_supergroup=2, use_fixed_ident_cutoff=True,
                     error=0.3, full_consensus=True)
@@ -133,7 +137,8 @@ def test_correction_options_match_jax_static_band(jax_static_band):
     recs_t = correct_reads(rs, Candidates.concat([ct, ct.swap_roles()]), co,
                            device="cpu")
     cj = JaxCandidates(*[getattr(ct, f.name) for f in dataclasses.fields(Candidates)])
-    recs_j = jcorrect.correct_reads(rs, JaxCandidates.concat([cj, cj.swap_roles()]), co)
+    recs_j = jcorrect.correct_reads(jrs, JaxCandidates.concat([cj, cj.swap_roles()]),
+                                    as_jax(co))
     assert sum(r.corrected for r in recs_j) >= 3
     assert len(recs_t) == len(recs_j)
     for a, b in zip(recs_t, recs_j):

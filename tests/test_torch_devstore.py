@@ -5,8 +5,9 @@ import pytest
 import torch
 
 from necat_tpu.io.devstore import DeviceReadStore as JaxDeviceReadStore
-from necat_tpu.io.readstore import ReadStore
 from necat_tpu_torch.io.devstore import DeviceReadStore
+from necat_tpu_torch.io.readstore import ReadStore
+from torch_port_helpers import both_stores
 
 
 @pytest.mark.parametrize("rc", [False, True])
@@ -14,8 +15,8 @@ def test_gather_rows_matches_jax(rc):
     rng = np.random.default_rng(21)
     reads = [rng.integers(0, 4, int(n)).astype(np.uint8)
              for n in rng.integers(50, 2000, 40)]
-    store = ReadStore.from_seqs(reads)
-    jdev = JaxDeviceReadStore(store)
+    jstore, store = both_stores(reads)
+    jdev = JaxDeviceReadStore(jstore)
     tdev = DeviceReadStore(store, "cpu")
     L = 2048
     ids = rng.integers(0, store.n_reads, 24)

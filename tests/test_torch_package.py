@@ -1,12 +1,14 @@
 """Package-level checks of necat_tpu_torch, and the CUDA kernels against
 their plain versions.
 
-This file imports no JAX, so that its CUDA tests run on a machine without it:
+This file imports neither JAX nor necat_tpu, so that its CUDA tests run on a
+machine without them:
     python -m pytest tests/test_torch_package.py --noconftest -m cuda
 Tests marked `cuda` skip where torch sees no CUDA device.
 """
 
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -14,28 +16,24 @@ import numpy as np
 import pytest
 import torch
 
-from necat_tpu.io import simulate
-from necat_tpu.io.readstore import ReadStore
+import necat_tpu_torch
+from necat_tpu_torch.io import simulate
+from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_MODULES = [
-    "necat_tpu_torch.utils.build", "necat_tpu_torch.utils.device",
-    "necat_tpu_torch.io.devstore", "necat_tpu_torch.align.banded_kernels",
-    "necat_tpu_torch.align.banded", "necat_tpu_torch.align.engine",
-    "necat_tpu_torch.consensus.tags", "necat_tpu_torch.consensus.backbone",
-    "necat_tpu_torch.consensus.fused", "necat_tpu_torch.consensus.correct",
-    "necat_tpu_torch.index.kmer_index", "necat_tpu_torch.overlap.candidates",
-    "necat_tpu_torch.overlap.chain", "necat_tpu_torch.overlap.overlapper",
-    "necat_tpu_torch.pipeline.stages", "necat_tpu_torch.pipeline.cli",
-]
+PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(necat_tpu_torch.__path__,
+                                                            "necat_tpu_torch."))
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port, and chip_smoke as a module (its
+    main does not run), loads no jax* and no necat_tpu module."""
+    assert len(PORT_MODULES) >= 30
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m.startswith('jaxlib'))\n"
+            f"for m in {PORT_MODULES + ['chip_smoke']!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'necat_tpu'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -82,73 +80,88 @@ def _pairs(seed, PB, L, W):
     return [torch.from_numpy(x) for x in (a, b, la, lb)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 2), (1024, 1)])
-def test_cuda_kernels_match_plain(cuda_device, W, words):
+def _check_kernels(cpu, dev, W, words, max_cols=None):
+    """K2, the fused K1 and K3 on the card equal their plain versions on the
+    CPU, byte for byte; returns the plain cols."""
     from necat_tpu_torch.align import banded_kernels as bk
-    PB, L = 37, 1024          # PB not a multiple of the warps per block
-    cpu = _pairs(W + words, PB, L, W)
-    dev = [x.to(cuda_device) for x in cpu]
-    enc_c = bk.diag_sub_matrix(*cpu, W, L)
-    enc_d = bk.diag_sub_matrix(*dev, W, L)
-    assert torch.equal(enc_d.cpu(), enc_c)
-    dirs_c, cost_c = bk.banded_forward(enc_c, cpu[2], cpu[3], W)
-    dirs_d, cost_d = bk.banded_forward(enc_d, dev[2], dev[3], W)
+    MC = cpu[1].shape[1] if max_cols is None else max_cols
+    before = dict(bk.launches_by_width)
+    assert torch.equal(bk.diag_sub_matrix(*dev, W, MC).cpu(),
+                       bk.diag_sub_matrix(*cpu, W, MC))
+    dirs_c, cost_c = bk.banded_forward(*cpu, W, max_cols)
+    dirs_d, cost_d = bk.banded_forward(*dev, W, max_cols)
     assert torch.equal(dirs_d.cpu(), dirs_c) and torch.equal(cost_d.cpu(), cost_c)
     out_c = bk.banded_backtrack_cols(dirs_c, cpu[2], cpu[3], W, words)
     out_d = bk.banded_backtrack_cols(dirs_d, dev[2], dev[3], W, words)
     torch.cuda.synchronize()
     assert torch.equal(out_d[0].cpu(), out_c[0])
-    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1]))
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1], strict=True))
     assert torch.equal(out_d[2].cpu(), out_c[2])
+    for name in ("diag_sub_matrix", "banded_forward", "banded_backtrack_cols"):
+        assert bk.launches_by_width[(name, W)] == before.get((name, W), 0) + 1
+    return out_c[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 2), (512, 2),
+                                     (1024, 1)])
+def test_cuda_kernels_match_plain(cuda_device, W, words):
+    PB, L = 37, 1024          # PB not a multiple of the warps per block
+    cpu = _pairs(W + words, PB, L, W)
+    _check_kernels(cpu, [x.to(cuda_device) for x in cpu], W, words)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,words", [(2048, 1), (2048, 2), (4096, 1), (4096, 3)])
 def test_cuda_wide_kernels_match_plain(cuda_device, W, words):
-    """The block-per-pair K1 and K3 of the rescue ladder's widths; K2 too."""
-    from necat_tpu_torch.align import banded_kernels as bk
+    """The rescue ladder's widths, a block per pair in K1 and K3."""
     PB, L = 5, 3000
     cpu = _pairs(W + words, PB, L, W)
     cpu[2][1] = cpu[3][1] // 2 + 1                 # a query far shorter than its target
-    dev = [x.to(cuda_device) for x in cpu]
-    enc_c = bk.diag_sub_matrix(*cpu, W, L)
-    enc_d = bk.diag_sub_matrix(*dev, W, L)
-    assert torch.equal(enc_d.cpu(), enc_c)
-    before = dict(bk.launches_by_width)
-    dirs_c, cost_c = bk.banded_forward(enc_c, cpu[2], cpu[3], W)
-    dirs_d, cost_d = bk.banded_forward(enc_d, dev[2], dev[3], W)
-    assert torch.equal(dirs_d.cpu(), dirs_c) and torch.equal(cost_d.cpu(), cost_c)
-    out_c = bk.banded_backtrack_cols(dirs_c, cpu[2], cpu[3], W, words)
-    out_d = bk.banded_backtrack_cols(dirs_d, dev[2], dev[3], W, words)
-    torch.cuda.synchronize()
-    assert torch.equal(out_d[0].cpu(), out_c[0])
-    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1]))
-    assert torch.equal(out_d[2].cpu(), out_c[2])
-    assert (out_c[0] >> 5).max() > 0               # insertion runs were exercised
-    for name in ("banded_forward", "banded_backtrack_cols"):
-        assert bk.launches_by_width[(name, W)] == before.get((name, W), 0) + 1
+    cols = _check_kernels(cpu, [x.to(cuda_device) for x in cpu], W, words)
+    assert (cols >> 5).max() > 0                   # insertion runs were exercised
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_cuda_forward_reads_rows_as_k2(cuda_device, W):
+    """The fused K1 reads the rows as K2 does: bases past la and lb are read
+    as they are (not as padding), target columns past b's width as
+    PAD_TARGET (max_cols > Lb), query indices outside the row as PAD_BASE."""
+    PB, L = 9, 1500
+    a, b, la, lb = _pairs(W + 7, PB, L, W)
+    rng = np.random.default_rng(W)
+    for i in range(PB):                            # junk past la and lb
+        a[i, int(la[i]):] = torch.from_numpy(rng.integers(0, 4, L - int(la[i])).astype(np.uint8))
+        b[i, int(lb[i]):] = torch.from_numpy(rng.integers(0, 4, L - int(lb[i])).astype(np.uint8))
+    b = b[:, :L - 200].contiguous()
+    lb = torch.minimum(lb, torch.tensor(L - 100, dtype=torch.int32))
+    cpu = [a, b, la, lb]
+    _check_kernels(cpu, [x.to(cuda_device) for x in cpu], W, 2, max_cols=L)
 
 
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_bad_inputs(cuda_device):
     from necat_tpu_torch.align import banded_kernels as bk
     enc = torch.zeros((4, 64, 96), dtype=torch.uint8, device=cuda_device)
+    a = torch.zeros((4, 64), dtype=torch.uint8, device=cuda_device)
     la = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        bk.banded_forward(enc, la, la, 96)                 # no kernel for W=96
+        bk.banded_forward(a, a, la, la, 96)                # no kernel for W=96
     with pytest.raises(TypeError):
-        bk.banded_forward(enc[:, :, :64].contiguous(), la.long(), la, 64)
+        bk.banded_forward(a, a, la.long(), la, 64)
+    with pytest.raises(ValueError):
+        bk.banded_forward(a[:, ::2], a, la, la, 64)        # not contiguous
     with pytest.raises(ValueError):
         bk.banded_backtrack_cols(enc[:, :, :64], la, la, 64)   # not contiguous
 
 
 @pytest.mark.cuda
 def test_cuda_correction_matches_cpu(cuda_device):
-    from necat_tpu.consensus.options import CnsOptions
-    from necat_tpu.overlap.options import MapOptions
     from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
     from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
     genome = simulate.random_genome(12000, seed=33)
     reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,

@@ -13,35 +13,32 @@ import torch
 
 from necat_tpu.align import pallas_banded as jpb
 from necat_tpu.consensus import fused as jfused
-from necat_tpu.io import simulate
 from necat_tpu.io.devstore import DeviceReadStore as JaxDeviceReadStore
-from necat_tpu.io.readstore import ReadStore
 from necat_tpu.overlap import overlapper as joverlapper
 from necat_tpu.overlap.candidates import Candidates as JaxCandidates
-from necat_tpu.utils import shapes
 from necat_tpu_torch.align import banded_kernels as bk
 from necat_tpu_torch.align.engine import ExtendEngine
 from necat_tpu_torch.consensus import fused
+from necat_tpu_torch.io import simulate
 from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.overlap import overlapper
 from necat_tpu_torch.overlap.candidates import Candidates
-from torch_port_helpers import (band_pairs, jax_static_band,  # noqa: F401
-                                jax_static_band_wide)
+from torch_port_helpers import (band_pairs, both_stores, cap_max_band,  # noqa: F401
+                                jax_static_band, jax_static_band_wide)
 
 T = torch.from_numpy
 
 
 @pytest.mark.parametrize("W", [2048, 4096])
 def test_wide_kernels_match_pallas(jax_static_band_wide, W):
-    """K1 and K3 (insb words 1 and 2) at the rescue ladder's widths, byte for
-    byte; the forward's ENC comes from the port's K2."""
+    """K1 (from the query and target rows) and K3 (insb words 1 and 2) at
+    the rescue ladder's widths, byte for byte."""
     PB, L = 8, 2048
     a, b, la, lb = band_pairs(W, PB, L, W)
     assert ((la - lb) % 2 == 1).any() and (la < lb).any()
     dirs_j, _, _, cost_j = jpb.banded_forward_pallas(
         *[jnp.asarray(x) for x in (a, b, la, lb)], W, L, interpret=True)
-    enc = bk.diag_sub_matrix(T(a), T(b), T(la), T(lb), W, L)
-    dirs, cost = bk.banded_forward(enc, T(la), T(lb), W)
+    dirs, cost = bk.banded_forward(T(a), T(b), T(la), T(lb), W)
     np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_j))
     np.testing.assert_array_equal(cost.numpy(), np.asarray(cost_j))
     for words in (1, 2):
@@ -60,8 +57,9 @@ def _planted(ins_lens, seed=5, tlen=2500):
     """Template reads 0..k-1 and query reads k..2k-1, query i a copy of
     template i at 2 % error with a random insertion of ins_lens[i] bases in
     the middle; candidate i anchors query i on template i 100 bases in (the
-    shape of tests/test_rescue.py:_pair_with_insert). Returns the store and
-    the candidates of both packages."""
+    shape of tests/test_rescue.py:_pair_with_insert). Returns the stores and
+    the candidates of both packages (JAX store, port store, port candidates,
+    JAX candidates)."""
     rng = np.random.default_rng(seed)
     em = simulate.ErrorModel(sub=0.02, ins=0.02, dele=0.02)
     subj, qry = [], []
@@ -79,7 +77,7 @@ def _planted(ins_lens, seed=5, tlen=2500):
              qbeg=np.full(k, 100, np.int32), qend=qsize - 100,
              sbeg=np.full(k, 100, np.int32), send=np.full(k, tlen - 100, np.int32),
              qsize=qsize, ssize=np.full(k, tlen, np.int32))
-    return ReadStore.from_seqs(subj + qry), Candidates(**f), JaxCandidates(**f)
+    return (*both_stores(subj + qry), Candidates(**f), JaxCandidates(**f))
 
 
 def _chunk_desc(rs, cands, W, nc0):
@@ -105,13 +103,13 @@ INSERTS = (0, 100, 250, 0, 400, 30)
 def test_extend_scatter_rescue_matches_jax(jax_static_band, rescue_defer, cols_guard):
     """The deferral flags of one correction chunk: stats exact (deferred
     included), weights to 1e-5 (sums in another order), coverage exact."""
-    rs, cands, _ = _planted(INSERTS)
+    jrs, rs, cands, _ = _planted(INSERTS)
     W, TB, D = 64, len(INSERTS), 8
     nc0 = np.where(np.arange(len(INSERTS)) % 2, 10_000, 0)     # half fail the guard
     eng, p = _chunk_desc(rs, cands, W, nc0)
     Lt = int(cands.ssize.max())
     cutoff = np.zeros(TB + 1, np.float32)
-    jq = JaxDeviceReadStore(rs)
+    jq = JaxDeviceReadStore(jrs)
     w_j, c_j, st_j = jfused.extend_scatter(
         jq.words, jq.words, jnp.asarray(p["desc"]), jnp.asarray(cutoff),
         jnp.zeros((TB + 1, D, 5, Lt), jnp.float32), jnp.zeros((TB + 1, Lt), jnp.int32),
@@ -133,14 +131,14 @@ def test_extend_scatter_rescue_matches_jax(jax_static_band, rescue_defer, cols_g
 def test_ident_pass_cols_guard_matches_jax(jax_static_band):
     """A rescue rung's ident pass: lanes that align fewer than nc0 columns
     keep their earlier ident-buffer entries."""
-    rs, cands, _ = _planted(INSERTS)
+    jrs, rs, cands, _ = _planted(INSERTS)
     W, TB = 64, len(INSERTS)
     nc0 = np.where(np.arange(len(INSERTS)) % 2, 10_000, 0)
     eng, p = _chunk_desc(rs, cands, W, nc0)
     rng = np.random.default_rng(3)
     ibuf = np.zeros((TB + 1, fused.IDENT_SLOTS, 3), np.float32)
     ibuf[:TB, :3] = rng.random((TB, 3, 3)).astype(np.float32) * [90, 1, 1]
-    jq = JaxDeviceReadStore(rs)
+    jq = JaxDeviceReadStore(jrs)
     ib_j, st_j, _ = jfused.ident_pass(jq.words, jq.words, jnp.asarray(p["desc"]),
                                       jnp.asarray(ibuf), np.int32(400), np.int32(200),
                                       np.bool_(True), W=W, L=p["L"], tail_match=8)
@@ -160,10 +158,10 @@ def test_extend_candidates_matches_jax(jax_static_band_wide, monkeypatch, rescue
     and 512 with shapes.MAX_BAND capped at 512 for both packages, none with
     it capped at 128, below the first rung (the JAX package with its
     rescue_long_indels off)."""
-    monkeypatch.setattr(shapes, "MAX_BAND", 512 if rescue else 128)
-    rs, cands, jcands = _planted(INSERTS)
+    cap_max_band(monkeypatch, 512 if rescue else 128)
+    jrs, rs, cands, jcands = _planted(INSERTS)
     kw = dict(min_align_size=400, band_width=64)
-    m4_j = joverlapper.extend_candidates(jcands, rs, rs, rescue_long_indels=rescue, **kw)
+    m4_j = joverlapper.extend_candidates(jcands, jrs, jrs, rescue_long_indels=rescue, **kw)
     m4_t = overlapper.extend_candidates(cands, rs, rs, device="cpu", **kw)
     for f in dataclasses.fields(m4_j):
         np.testing.assert_array_equal(getattr(m4_t, f.name), getattr(m4_j, f.name),

@@ -8,15 +8,14 @@ import numpy as np
 import pytest
 
 from necat_tpu.consensus import correct as jcorrect
-from necat_tpu.consensus.options import CnsOptions
 from necat_tpu.overlap.candidates import Candidates as JaxCandidates
-from necat_tpu.utils import shapes
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.correct import correct_reads
+from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.overlap import overlapper
 from necat_tpu_torch.overlap.candidates import Candidates
-from torch_port_helpers import (SMALL_MAP_OPTIONS, indel_store,  # noqa: F401
-                                jax_static_band_wide)
+from torch_port_helpers import (SMALL_MAP_OPTIONS, as_jax, cap_max_band,  # noqa: F401
+                                indel_store, jax_static_band_wide)
 
 
 @pytest.mark.parametrize("case", ["estimating", "fixed_cutoff"])
@@ -26,18 +25,18 @@ def test_correction_slice_rescue_matches_jax(jax_static_band_wide, monkeypatch, 
     512); a fixed cutoff runs the deferral ladder of the later rounds (W0 64,
     rungs 256 and 512, then the replay at the best band). shapes.MAX_BAND is
     capped at 512 for both packages."""
-    monkeypatch.setattr(shapes, "MAX_BAND", 512)
+    cap_max_band(monkeypatch, 512)
     widths = []
     dispatch = fused.dispatch_wave
     monkeypatch.setattr(fused, "dispatch_wave",
                         lambda *a, **k: (widths.append(k["W"]), dispatch(*a, **k))[1])
     if case == "estimating":
-        rs = indel_store(6000, 33, 34)
+        jrs, rs = indel_store(6000, 33, 34)
         co = CnsOptions(templates_per_batch=16, pairs_per_chunk=64,
                         rescue_long_indels=True)
         rungs = {512}
     else:
-        rs = indel_store(6000, 77, 78)
+        jrs, rs = indel_store(6000, 77, 78)
         co = CnsOptions(templates_per_batch=16, pairs_per_chunk=64,
                         rescue_long_indels=True, use_fixed_ident_cutoff=True,
                         error=0.3, band_width=64)
@@ -46,7 +45,8 @@ def test_correction_slice_rescue_matches_jax(jax_static_band_wide, monkeypatch, 
                                         device="cpu")
     recs_t = correct_reads(rs, Candidates.concat([ct, ct.swap_roles()]), co, device="cpu")
     cj = JaxCandidates(*[getattr(ct, f.name) for f in dataclasses.fields(Candidates)])
-    recs_j = jcorrect.correct_reads(rs, JaxCandidates.concat([cj, cj.swap_roles()]), co)
+    recs_j = jcorrect.correct_reads(jrs, JaxCandidates.concat([cj, cj.swap_roles()]),
+                                    as_jax(co))
     assert rungs <= set(widths)
     assert sum(r.corrected for r in recs_j) >= 5
     assert len(recs_t) == len(recs_j)

@@ -5,13 +5,13 @@ import json
 import numpy as np
 import pytest
 
-from necat_tpu.io.readstore import ReadStore
-from necat_tpu.pipeline import config as config_mod
+from necat_tpu.pipeline import config as jax_config
 from necat_tpu.pipeline.stages import Project as JaxProject
-from necat_tpu.utils import shapes
+from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.pipeline import cli
+from necat_tpu_torch.pipeline import config as config_mod
 from necat_tpu_torch.pipeline.stages import Project
-from torch_port_helpers import indel_store, jax_static_band_wide  # noqa: F401
+from torch_port_helpers import cap_max_band, indel_store, jax_static_band_wide  # noqa: F401
 
 
 def _write_config(tmp_path, name, extra=""):
@@ -20,7 +20,7 @@ def _write_config(tmp_path, name, extra=""):
     (the rescue ladder)."""
     reads = tmp_path / "reads.fasta"
     if not reads.exists():
-        indel_store(4000, 33, 34).to_fasta(reads)
+        indel_store(4000, 33, 34)[1].to_fasta(reads)
         (tmp_path / "read_list.txt").write_text(f"{reads}\n")
     cfg = tmp_path / f"{name}.cfg"
     cfg.write_text(
@@ -36,8 +36,8 @@ def test_run_correct_matches_jax(jax_static_band_wide, monkeypatch, tmp_path):
     rescue ladder, shapes.MAX_BAND capped at 512 for both packages) write
     the same cns_final as the JAX package's Project.run_correct; a second
     run skips the stage."""
-    monkeypatch.setattr(shapes, "MAX_BAND", 512)
-    cfg = config_mod.load_config(_write_config(tmp_path, "jax"))
+    cap_max_band(monkeypatch, 512)
+    cfg = jax_config.load_config(_write_config(tmp_path, "jax"))
     out_j = JaxProject(cfg, cfg.project).run_correct()
     assert cli.main(["correct", str(_write_config(tmp_path, "torch")),
                      "--device", "cpu"]) == 0

@@ -1,15 +1,18 @@
 """Shared inputs and fixtures of the necat_tpu_torch tests.
 
-Inputs are made with numpy from a seed and handed to both packages. The JAX
-package runs a different band on each backend: on the CPU its extension
-takes the adaptive band scan, on the TPU the static band of its Pallas
-kernels. The port implements the static band, so it is compared with the
-JAX package forced onto the static band, its Pallas kernels in interpret
-mode (`jax_static_band`).
+Inputs are made with numpy from a seed and handed to both packages, each
+package getting its own objects (read stores, options) built from the same
+arrays: the port imports nothing of necat_tpu. The JAX package runs a
+different band on each backend: on the CPU its extension takes the adaptive
+band scan, on the TPU the static band of its Pallas kernels. The port
+implements the static band, so it is compared with the JAX package forced
+onto the static band, its Pallas kernels in interpret mode
+(`jax_static_band`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
@@ -17,11 +20,35 @@ import numpy as np
 import pytest
 import torch
 
-from necat_tpu.io import simulate
-from necat_tpu.io.readstore import ReadStore
-from necat_tpu.overlap.options import MapOptions
+from necat_tpu.consensus.options import CnsOptions as JaxCnsOptions
+from necat_tpu.io.readstore import ReadStore as JaxReadStore
+from necat_tpu.overlap.options import MapOptions as JaxMapOptions
+from necat_tpu.utils import shapes as jax_shapes
+from necat_tpu_torch.consensus.options import CnsOptions
+from necat_tpu_torch.io import simulate
+from necat_tpu_torch.io.readstore import ReadStore
+from necat_tpu_torch.overlap.options import MapOptions
+from necat_tpu_torch.utils import shapes
 
 SMALL_MAP_OPTIONS = MapOptions(kmer_size=13, max_hits=1 << 18, max_pairs=4096)
+
+
+def as_jax(opts):
+    """The JAX package's options with the same fields as the port's."""
+    cls = {MapOptions: JaxMapOptions, CnsOptions: JaxCnsOptions}[type(opts)]
+    return cls(**dataclasses.asdict(opts))
+
+
+def both_stores(seqs):
+    """(necat_tpu ReadStore, necat_tpu_torch ReadStore) of the same reads."""
+    return JaxReadStore.from_seqs(seqs), ReadStore.from_seqs(seqs)
+
+
+def cap_max_band(monkeypatch, value: int) -> None:
+    """Cap the rescue ladder's band in both packages (each reads its own
+    shapes.MAX_BAND at call time)."""
+    monkeypatch.setattr(jax_shapes, "MAX_BAND", value)
+    monkeypatch.setattr(shapes, "MAX_BAND", value)
 
 # The plain kernel versions are long chains of small ops, which intra-op
 # threads do not speed up; with one test process per core those threads
@@ -70,20 +97,21 @@ def jax_static_band_wide(monkeypatch):
     yield from _force_static_band(monkeypatch, pallas_enc=True)
 
 
-def small_store(G=12000, gseed=33, rseed=34, coverage=6) -> ReadStore:
+def small_store(G=12000, gseed=33, rseed=34, coverage=6):
     """The read set of tests/test_consensus.py::_small_call (19 reads of
-    3-5.5 kb at 6x of a 12 kb genome)."""
+    3-5.5 kb at 6x of a 12 kb genome), as both_stores."""
     genome = simulate.random_genome(G, seed=gseed)
     reads, *_ = simulate.simulate_reads(
         genome, coverage=coverage, mean_len=4000, min_len=3000, max_len=5500,
         seed=rseed)
-    return ReadStore.from_seqs(reads)
+    return both_stores(reads)
 
 
 def indel_store(G, gseed, rseed, ins=250, every=3):
     """Simulated reads at 6x (2-3.5 kb: one length tier) with a random
     insertion of `ins` bases planted in the middle of every `every`-th read:
-    candidates across it hang until a rung of the ladder crosses it."""
+    candidates across it hang until a rung of the ladder crosses it. Both
+    packages' stores (both_stores)."""
     genome = simulate.random_genome(G, seed=gseed)
     reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=2800, min_len=2000,
                                         max_len=3500, seed=rseed)
@@ -92,7 +120,7 @@ def indel_store(G, gseed, rseed, ins=250, every=3):
         m = len(reads[i]) // 2
         reads[i] = np.concatenate([reads[i][:m], rng.integers(0, 4, ins).astype(np.uint8),
                                    reads[i][m:]])
-    return ReadStore.from_seqs(reads)
+    return both_stores(reads)
 
 
 def band_pairs(seed: int, PB: int, L: int, W: int, clamp: bool = True):
