@@ -39,9 +39,24 @@ Phases, each failing the run on error:
              options: iteration 2 runs the rescue ladder) on the bench read
              set; cns_final must keep >= 97 % of main's corrected reads at an
              identity no more than 0.5 points below main's. Its per-iteration
-             seconds and pairs by band come from the stage's manifest.
-The launch counts are set to 0 before each path (main, rescue, correct) and
-read after it. It prints one JSON line of kernel results, the card line, and
+             seconds and pairs by band come from the stage's manifest;
+  9. polish  polish_contigs (band 256, max_delta 22: K3 with three insb
+             words, the stream consensus and the host link-DP repair) on a
+             20 kb draft missing 300 bases (tests/test_polish.py's collapsed
+             repeat) on "cuda" against "cpu": identical polished contigs,
+             and the hotspot repair must have returned an override;
+ 10. assemble `python -m necat_tpu_torch.pipeline.cli assemble <cfg> --device
+             cuda` on phase 8's project and config (correct is skipped by its
+             manifest; trim, assemble and polish run): K1 and K3 must launch
+             at W=128 and 256 and K2 never, a contig must hold >= 50 % of the
+             genome, and the polished contigs' identity to the true genome
+             (10 kb pieces, each placed by an exact 21-mer) must be no lower
+             than JAX_CPU_ASSEMBLY_REFERENCE's - 0.5 and fall below the
+             draft's by no more than the reference's own polish loses + 0.5.
+             Stage seconds come from the stages' manifests.
+Phase 3 also runs W=256 (K3 with 3 insb words, as polish runs it) and phase
+6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
+(main, rescue, correct, polish, assemble) and read after it. It prints one JSON line of kernel results, the card line, and
 last a JSON status line {"ok": true, "device": {...}}. Without CUDA it exits
 non-zero before printing any result. It imports nothing of necat_tpu.
 """
@@ -68,7 +83,19 @@ import torch  # noqa: E402
 # no more than 0.5 percentage points lower.
 JAX_CPU_REFERENCE = {"corrected_reads": 339, "identity": 99.13}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
+# necat_tpu's `cli assemble` of the bench read set on the CPU with the config
+# of phase 8 (the adaptive band; scripts/jax_assemble_reference.py):
+# identities as contig_identity measures them. Its polish LOWERS identity on
+# this set (the hotspot repair; without it the port's polish keeps the
+# draft's identity, scripts/torch_polish_diag.py), so phase 10 holds the
+# port to this reference: polished identity no more than 0.5 points below
+# its polished identity, and no more than 0.5 points more lost to polishing.
+JAX_CPU_ASSEMBLY_REFERENCE = {"contigs": 1, "contig_n50": 199982,
+                              "draft_identity": 99.953, "polished_identity": 99.862}
 RUNGS = (512, 1024, 2048, 4096)      # the rescue ladder's widths from W0=128
+POLISH_W = 256                       # PolishOptions.band_width
+POLISH_WORDS = 3                     # K3's insb words at max_delta 22
+WORDS3_RUNGS = (1024,)               # rungs where K3 is also held at POLISH_WORDS
 WIDE = (2048, 4096)                  # rungs the rescue phase must launch K1 and K3 at
 RESCUE_INSERTS = (0, 300, 0, 600, 1000, 0)
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
@@ -165,12 +192,12 @@ def _cuda_kernel(name: str, W: int) -> str:
     return f"{base}_kernel<{W}>"
 
 
-def bound(name: str, a, b, lb, W: int, cols=None):
+def bound(name: str, a, b, lb, W: int, cols=None, words: int = 1):
     """(bound_ms, bound_by) of one launch on these inputs: each input byte
     read once and each output byte written once over PEAK_BYTES_S, or the
     integer operations it needs over PEAK_INT_OPS_S, whichever takes longer.
-    K3 reads only the live rows of dirs and writes cols and one insb word;
-    its operations follow the walk, from its cols output."""
+    K3 reads only the live rows of dirs and writes cols and `words` insb
+    words; its operations follow the walk, from its cols output."""
     PB, L = a.shape
     MC = b.shape[1]
     ncol = lb.clamp(min=0, max=MC)
@@ -178,7 +205,8 @@ def bound(name: str, a, b, lb, W: int, cols=None):
     rows = a.numel() + b.numel() + 8 * PB
     nbytes = {"diag_sub_matrix": rows + PB * MC * W,
               "banded_forward": rows + PB * MC * W + 4 * PB,
-              "banded_backtrack_cols": live + 8 * PB + 8 * PB * MC + 4 * PB}[name]
+              "banded_backtrack_cols": live + 8 * PB + 4 * (1 + words) * PB * MC
+              + 4 * PB}[name]
     if name == "banded_backtrack_cols":
         in_walk = torch.arange(MC, device=cols.device)[None, :] < ncol[:, None]
         ops = int(((cols >> 5) + 1)[in_walk].sum()) * OPS_PER_WALK_LANE
@@ -210,23 +238,26 @@ def kernel_pairs(dev, W: int, L: int = 8192):
     return [torch.from_numpy(x).to(dev) for x in (a, b, la, lb)]
 
 
-def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
-    """Each kernel against its plain version at one production chunk;
-    results keyed (kernel, W)."""
+def check_kernels(dev, W: int = 128, L: int = 8192, k3_words=(1,)) -> dict:
+    """Each kernel against its plain version at one production chunk, K3 at
+    each insb word count in k3_words; results keyed (kernel, W, words), words
+    None for K1 and K2."""
     from necat_tpu_torch.align import banded_kernels as bk
     a, b, la, lb = kernel_pairs(dev, W, L)
     PB = a.shape[0]
     steps = {
-        "banded_forward": (lambda: bk.banded_forward(a, b, la, lb, W),
-                           lambda: bk.banded_forward_ref(a, b, la, lb, W)),
-        "diag_sub_matrix": (lambda: bk.diag_sub_matrix(a, b, la, lb, W, L),
-                            lambda: bk.diag_sub_matrix_ref(a, b, la, lb, W, L)),
+        ("banded_forward", None): (lambda: bk.banded_forward(a, b, la, lb, W),
+                                   lambda: bk.banded_forward_ref(a, b, la, lb, W)),
+        ("diag_sub_matrix", None): (lambda: bk.diag_sub_matrix(a, b, la, lb, W, L),
+                                    lambda: bk.diag_sub_matrix_ref(a, b, la, lb, W, L)),
     }
-    dirs, _ = steps["banded_forward"][0]()
-    steps["banded_backtrack_cols"] = (lambda: bk.banded_backtrack_cols(dirs, la, lb, W, 1),
-                                      lambda: bk.banded_backtrack_cols_ref(dirs, la, lb, W, 1))
+    dirs, _ = steps[("banded_forward", None)][0]()
+    for w in k3_words:
+        steps[("banded_backtrack_cols", w)] = (
+            lambda w=w: bk.banded_backtrack_cols(dirs, la, lb, W, w),
+            lambda w=w: bk.banded_backtrack_cols_ref(dirs, la, lb, W, w))
     results = {}
-    for name, (kernel, plain) in steps.items():
+    for (name, words), (kernel, plain) in steps.items():
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -235,18 +266,25 @@ def check_kernels(dev, W: int = 128, L: int = 8192) -> dict:
         ms = _time_ms(kernel, 5)
         plain_ms = _time_ms(plain, 1)
         bound_ms, bound_by = bound(name, a, b, lb, W,
-                                   got[0] if name == "banded_backtrack_cols" else None)
-        results[(name, W)] = dict(name=name, W=W, cuda_kernel=_cuda_kernel(name, W),
-                                  route="cuda", source=KERNEL_SOURCE,
-                                  replaces=REPLACES[name], max_abs_err=err, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=None)
-        print(f"kernel {name}: PB={PB} L={L} W={W} max_abs_err={err} "
+                                   got[0] if words else None, words or 1)
+        results[(name, W, words)] = dict(
+            name=name, W=W, **({"words": words} if words else {}),
+            cuda_kernel=_cuda_kernel(name, W), route="cuda", source=KERNEL_SOURCE,
+            replaces=REPLACES[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"kernel {name}: PB={PB} L={L} W={W}"
+              + (f" words={words}" if words else "") + f" max_abs_err={err} "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}, {100 * bound_ms / ms:.1f} % of it)", flush=True)
         if err != 0.0:
             raise AssertionError(f"{name}: kernel and plain version disagree ({err})")
     return results
+
+
+def _launches(bk) -> dict:
+    """This path's launch counts: by (wrapper, W), and K3's by (W, words)."""
+    return {"by_width": collections.Counter(bk.launches_by_width),
+            "k3_by_words": collections.Counter(bk.k3_launches_by_words)}
 
 
 def _same_records(ra, rb) -> None:
@@ -331,8 +369,9 @@ def main_path(dev, launch_counts: dict) -> dict:
     recs = correct_reads(store, call, CnsOptions(), device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launch_counts["main"] = collections.Counter(bk.launches_by_width)
-    launches = {name: sum(n for (k, _), n in launch_counts["main"].items() if k == name)
+    launch_counts["main"] = _launches(bk)
+    launches = {name: sum(n for (k, _), n in launch_counts["main"]["by_width"].items()
+                          if k == name)
                 for name in REPLACES}
     ncorr = len({r.tid for r in recs if r.corrected})
     ident = accuracy_sample(recs, store.lengths, genome, st, sd, ln)
@@ -406,7 +445,7 @@ def check_rescue(dev, launch_counts: dict) -> None:
                              CnsOptions(rescue_long_indels=True), device=d)
         if d != "cpu":
             torch.cuda.synchronize()
-            launch_counts["rescue"] = collections.Counter(bk.launches_by_width)
+            launch_counts["rescue"] = _launches(bk)
         res[str(d)] = (m4, recs)
         spans = (m4.qend - m4.qoff).tolist()
         print(f"rescue on {d}: {time.perf_counter() - t0:.1f} s, M4 query spans "
@@ -420,7 +459,7 @@ def check_rescue(dev, launch_counts: dict) -> None:
     if len(m4_a) != len(RESCUE_INSERTS) or \
             ((m4_a.qend - m4_a.qoff) < m4_a.qsize - 400).any():
         raise AssertionError("rescue: a planted insertion was not crossed")
-    counts = launch_counts["rescue"]
+    counts = launch_counts["rescue"]["by_width"]
     print("rescue: devices identical; launches by width "
           + json.dumps({f"{k}@{w}": n for (k, w), n in sorted(counts.items())}), flush=True)
     missing = [(k, w) for k in ("banded_forward", "banded_backtrack_cols") for w in WIDE
@@ -429,10 +468,10 @@ def check_rescue(dev, launch_counts: dict) -> None:
         raise AssertionError(f"rescue: kernels never launched at {missing}")
 
 
-def check_correct(launch_counts: dict, main_res: dict) -> None:
+def check_correct(launch_counts: dict, main_res: dict):
     """The CLI's correct command (Project.run_correct) on the bench read set
     with the config template's options and NUM_ITER=2 (iteration 2 runs the
-    rescue ladder), on "cuda"."""
+    rescue ladder), on "cuda". Returns the config's path and the genome."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import CnsRecord
     from necat_tpu_torch.io.readstore import ReadStore
@@ -463,10 +502,10 @@ def check_correct(launch_counts: dict, main_res: dict) -> None:
     rc = cli.main(["correct", cfg_path, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launch_counts["correct"] = collections.Counter(bk.launches_by_width)
+    launch_counts["correct"] = _launches(bk)
     if rc != 0:
         raise AssertionError(f"correct: the command line exited {rc}")
-    ran = {k for (k, _), n in launch_counts["correct"].items() if n}
+    ran = {k for (k, _), n in launch_counts["correct"]["by_width"].items() if n}
     if ran != set(ON_PATH):
         raise AssertionError(f"correct: K1 and K3 must launch and K2 not: {ran}")
     cns_dir = os.path.join(WORK, "project", "1-consensus")
@@ -483,7 +522,8 @@ def check_correct(launch_counts: dict, main_res: dict) -> None:
     ident = accuracy_sample(recs, lengths, genome, st, sd, ln)
     print("correct " + json.dumps({
         "iterations": iters, "wall_s": wall,
-        "launches": {f"{k}@{w}": n for (k, w), n in sorted(launch_counts["correct"].items())},
+        "launches": {f"{k}@{w}": n for (k, w), n in
+                     sorted(launch_counts["correct"]["by_width"].items())},
         "cns_final_reads": final.n_reads, "cns_final_bases": int(final.total_bases),
         "corrected_reads": ncorr, "identity_pct": ident,
         "main": main_res}), flush=True)
@@ -493,6 +533,178 @@ def check_correct(launch_counts: dict, main_res: dict) -> None:
     if ident is None or ident < main_res["identity"] - 0.5:
         raise AssertionError(f"correct: identity {ident} < main's "
                              f"{main_res['identity']} - 0.5")
+    return cfg_path, genome
+
+
+def collapsed_repeat(seed: int = 21):
+    """tests/test_polish.py's collapsed repeat: a 20 kb genome whose draft
+    misses 300 bases at 9000; three reads at 3 % error per kind across the
+    site and four elsewhere. Returns (truth, drop, draft, reads)."""
+    from necat_tpu_torch.io import simulate
+    rng = np.random.default_rng(seed)
+    truth = simulate.random_genome(20000, seed=25)
+    drop = 9000
+    draft = np.concatenate([truth[:drop], truth[drop + 300:]])
+    em = simulate.ErrorModel(0.03, 0.03, 0.03)
+    reads = [simulate.mutate(truth[s:s + 8000], em, rng) for s in (5500, 6500, 7500)]
+    reads += [simulate.mutate(truth[s:s + 6000], em, rng) for s in (0, 2000, 12000, 14000)]
+    return truth, drop, draft, reads
+
+
+def best_substring_ed(hay: np.ndarray, needle: np.ndarray) -> int:
+    """The fewest edits turning needle into a substring of hay."""
+    m = len(needle)
+    ar = np.arange(m + 1, dtype=np.int32)
+    prev = ar.copy()
+    best = int(prev[m])
+    for x in hay:
+        base = np.minimum(prev[:-1] + (needle != x).astype(np.int32), prev[1:] + 1)
+        prev = np.minimum.accumulate(np.concatenate(([np.int32(0)], base)) - ar) + ar
+        best = min(best, int(prev[m]))
+    return best
+
+
+def check_polish(dev, launch_counts: dict) -> None:
+    """polish_contigs of the collapsed repeat on "cpu" and on the card:
+    identical polished contigs; the hotspot repair returned an override."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus import correct
+    from necat_tpu_torch.io.readstore import ReadStore
+    from necat_tpu_torch.polish import polish
+    truth, drop, draft, reads = collapsed_repeat()
+    opts = polish.PolishOptions(segment_size=16384, min_ident=75.0, templates_per_batch=2)
+    repair = correct._bucket_hot_overrides
+    res = {}
+    for d in ("cpu", dev):
+        overrides = []
+        correct._bucket_hot_overrides = lambda *a, **k: overrides.append(
+            repair(*a, **k)) or overrides[-1]
+        bk.reset_launches()
+        correct.seconds_by_part.clear()
+        t0 = time.perf_counter()
+        try:
+            pol = polish.polish_contigs(ReadStore.from_seqs([draft], ["ctg0"]),
+                                        ReadStore.from_seqs(reads), device=d, opts=opts)
+        finally:
+            correct._bucket_hot_overrides = repair
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launch_counts["polish"] = _launches(bk)
+        wall = time.perf_counter() - t0
+        seq = pol.get(0)
+        res[str(d)] = seq
+        pattern = truth[drop - 50:drop + 350]          # the dropped chunk in context
+        print(f"polish on {d}: {wall:.1f} s, parts "
+              + json.dumps({k: round(v, 3) for k, v in correct.seconds_by_part.items()})
+              + f", override positions {[sum(map(len, o.values())) for o in overrides]}, "
+              f"repeat edits draft {best_substring_ed(draft[drop - 800:drop + 800], pattern)}"
+              f" polished {best_substring_ed(seq[drop - 800:drop + 1200], pattern)}",
+              flush=True)
+        if not any(overrides):
+            raise AssertionError(f"polish on {d}: the hotspot repair made no override")
+    if not np.array_equal(res["cpu"], res[str(dev)]):
+        raise AssertionError("polish: cuda and cpu polished contigs differ")
+    print("polish: devices identical; launches "
+          + json.dumps({f"{k}@{w}": n for (k, w), n in
+                        sorted(launch_counts["polish"]["by_width"].items())})
+          + ", K3 by (W, words) "
+          + json.dumps({f"{w}x{n_w}": n for (w, n_w), n in
+                        sorted(launch_counts["polish"]["k3_by_words"].items())}), flush=True)
+
+
+def contig_identity(contigs, genome, piece: int = 10_000, k: int = 21):
+    """Identity (percent) of contigs to the circular true genome: each contig
+    is cut into `piece`-base pieces, each piece placed by the first of its
+    k-mers (every 50 bases from its start) that occurs exactly once in the
+    genome on either strand, and scored by simulate.banded_edit_distance
+    against the genome window around that place. Returns (identity over the
+    placed pieces, placed bases, all bases)."""
+    from necat_tpu_torch.io import simulate
+    g = genome.astype(np.uint8)
+    pad = min(2 * piece, len(g))
+    rc = (3 - g[::-1]).astype(np.uint8)
+    cores = [np.concatenate([x, x[:k - 1]]).tobytes() for x in (g, rc)]
+    exts = [np.concatenate([x[-pad:], x, x[:pad]]).tobytes() for x in (g, rc)]
+    edits = placed = total = 0
+    for c in range(contigs.n_reads):
+        seq = contigs.get(c)
+        for p0 in range(0, len(seq), piece):
+            pc = seq[p0:p0 + piece]
+            total += len(pc)
+            for off in range(0, max(len(pc) - k, 0), 50):
+                kmer = pc[off:off + k].tobytes()
+                n_hits = [h.count(kmer) for h in cores]
+                if sum(n_hits) == 1:
+                    break
+            else:
+                continue
+            s = n_hits.index(1)
+            lo = cores[s].find(kmer) + pad - off
+            ref = np.frombuffer(exts[s][lo - 100:lo + len(pc) + 100], np.uint8)
+            edits += simulate.banded_edit_distance(pc, ref, band=300, b_prefix_free=True,
+                                                   b_suffix_free=True)
+            placed += len(pc)
+    return (100.0 * (1 - edits / placed) if placed else None), placed, total
+
+
+def check_assemble(launch_counts: dict, cfg_path: str, genome) -> None:
+    """The CLI's assemble command on phase 8's project: correct is skipped
+    by its manifest; trim, assemble and polish run on "cuda"."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.io.readstore import ReadStore
+    from necat_tpu_torch.pipeline import cli
+    prj = os.path.join(WORK, "project")
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["assemble", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch_counts["assemble"] = _launches(bk)
+    if rc != 0:
+        raise AssertionError(f"assemble: the command line exited {rc}")
+    stages = {}
+    for name, sub in (("trim", "2-trim_bases"), ("assemble", "4-fsa"),
+                      ("polish", "final-polish")):
+        with open(os.path.join(prj, sub, f"{name}.done.json")) as f:
+            stages[name] = {k: v for k, v in json.load(f).items()
+                            if k not in ("input_fp", "params", "rc")}
+    draft = ReadStore.from_fasta(os.path.join(prj, "4-fsa", "contigs.fasta"))
+    polished = ReadStore.from_fasta(os.path.join(prj, "polished_contigs.fasta"))
+    t1 = time.perf_counter()
+    ident = {name: contig_identity(st, genome) for name, st in
+             (("draft", draft), ("polished", polished))}
+    counts = launch_counts["assemble"]
+    print("assemble " + json.dumps({
+        "wall_s": wall, "stages": stages,
+        "contigs": draft.n_reads, "contig_bases": int(draft.total_bases),
+        "contig_n50": draft.n50()[0], "longest": int(draft.lengths.max(initial=0)),
+        "polished_bases": int(polished.total_bases), "polished_n50": polished.n50()[0],
+        "identity_pct": {k: v[0] for k, v in ident.items()},
+        "placed_bases": {k: [v[1], v[2]] for k, v in ident.items()},
+        "identity_s": time.perf_counter() - t1,
+        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        "launches": {f"{k}@{w}": n for (k, w), n in sorted(counts["by_width"].items())},
+        "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in
+                        sorted(counts["k3_by_words"].items())},
+        "jax_cpu_reference": JAX_CPU_ASSEMBLY_REFERENCE}), flush=True)
+    missing = [(k, w) for k in ON_PATH for w in (128, POLISH_W)
+               if not counts["by_width"].get((k, w))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"assemble: K1 and K3 must launch at 128 and {POLISH_W} "
+                             f"and K2 not: {dict(counts['by_width'])}")
+    if draft.lengths.max(initial=0) < 0.5 * len(genome):
+        raise AssertionError("assemble: no contig holds half of the genome")
+    d_id, p_id = ident["draft"][0], ident["polished"][0]
+    ref = JAX_CPU_ASSEMBLY_REFERENCE
+    ref_loss = max(ref["draft_identity"] - ref["polished_identity"], 0.0)
+    if d_id is None or p_id is None or d_id - p_id > ref_loss + 0.5:
+        raise AssertionError(f"assemble: polishing took identity from {d_id} to {p_id}, "
+                             f"more than necat_tpu's loss {ref_loss:.3f} + 0.5")
+    if p_id < ref["polished_identity"] - 0.5:
+        raise AssertionError(f"assemble: polished identity {p_id} < necat_tpu's "
+                             f"{ref['polished_identity']} - 0.5")
 
 
 def main() -> int:
@@ -501,21 +713,29 @@ def main() -> int:
               "false); nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     smi = probe()
     build()
     kernels = check_kernels(dev)
+    kernels.update(check_kernels(dev, W=POLISH_W, k3_words=(POLISH_WORDS,)))
     check_slice(dev)
     launch_counts = {}
     main_res = main_path(dev, launch_counts)
     for W in RUNGS:
-        kernels.update(check_kernels(dev, W=W))
+        kernels.update(check_kernels(
+            dev, W=W, k3_words=(1, POLISH_WORDS) if W in WORDS3_RUNGS else (1,)))
     check_rescue(dev, launch_counts)
-    check_correct(launch_counts, main_res)
-    for (name, W), entry in kernels.items():
-        by_path = {path: c.get((name, W), 0) for path, c in launch_counts.items()}
+    cfg_path, genome = check_correct(launch_counts, main_res)
+    check_polish(dev, launch_counts)
+    check_assemble(launch_counts, cfg_path, genome)
+    for (name, W, words), entry in kernels.items():
+        by_path = {path: (c["k3_by_words"].get((W, words), 0) if words
+                          else c["by_width"].get((name, W), 0))
+                   for path, c in launch_counts.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_main"] = by_path["main"]
         entry["launches_by_path"] = by_path
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

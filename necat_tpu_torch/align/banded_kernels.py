@@ -16,7 +16,8 @@ ctr = W/2 - floor((la - lb) / 2) (the extension clamps |la - lb| <= W/4).
 Each wrapper runs its plain PyTorch version (``*_ref``) for tensors on the
 CPU, and launches its CUDA kernel (csrc/banded_kernels.cu) for tensors on a
 CUDA device; it raises for anything else. ``launches_by_width`` counts the
-kernel launches of each (wrapper, W); ``reset_launches`` sets it to 0.
+kernel launches of each (wrapper, W), ``k3_launches_by_words`` K3's of each
+(W, insb words); ``reset_launches`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -35,10 +36,12 @@ N_INSB = 7           # inserted bases recorded per insb word and run end
 KERNEL_WIDTHS = (64, 128, 256, 512, 1024, 2048, 4096)
 
 launches_by_width: Counter = Counter()       # (wrapper name, W) -> launches
+k3_launches_by_words: Counter = Counter()    # (W, words) -> K3 launches
 
 
 def reset_launches() -> None:
     launches_by_width.clear()
+    k3_launches_by_words.clear()
 
 
 def band_centre(W: int, la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
@@ -323,4 +326,5 @@ def banded_backtrack_cols(dirs, la, lb, W: int, words: int = 1):
             lb.data_ptr(), cols.data_ptr(), insb.data_ptr(), lead.data_ptr(),
             PB, MC, W, words)
     launches_by_width[("banded_backtrack_cols", W)] += 1
+    k3_launches_by_words[(W, words)] += 1
     return cols, tuple(insb), lead

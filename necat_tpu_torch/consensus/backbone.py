@@ -1,11 +1,14 @@
 """Consensus calling from the dense tag tensor (counterpart of
-necat_tpu/consensus/backbone.py, packed branch).
+necat_tpu/consensus/backbone.py).
 
 Per template column a thresholded weighted majority: delta 0 emits the
 argmax base (a gap wins as a deletion) where coverage >= min_cov; delta
 k >= 1 emits its argmax ACGT where the weight clears ins_frac * cov +
-ins_offset. The calls are packed into one int32 per column for the host
-decode compact_from_packed.
+ins_offset. Up to max_delta 10 the calls are packed into one int32 per
+column for the host decode compact_from_packed; wider deltas (polish, 22)
+compact the emitted bases on the device into a stream (consensus_stream)
+for compact_from_stream, and hot_insertion_mask marks the columns the host
+link DP repairs.
 """
 
 from __future__ import annotations
@@ -80,6 +83,114 @@ def compact_from_packed(
                 continue
             fields = (p[s:e, None] >> (3 * np.arange(max_delta)[None, :])) & 7
             seq = fields[fields < 4]            # row-major: t asc, delta asc
+            if len(seq) >= min_size:
+                cns_pieces.append((int(s), int(e), seq.astype(np.uint8)))
+        prev = 0
+        for s, e in [(s, e) for (s, e, _) in cns_pieces] + [(n, n)]:
+            if s - prev >= raw_min_gap:
+                raw_pieces.append((prev, s, templates[b, prev:s].astype(np.uint8)))
+            prev = max(prev, e)
+        out.append((cns_pieces, raw_pieces))
+    return out
+
+
+def hot_insertion_mask(weights, coverage, min_cov) -> torch.Tensor:
+    """bool[TB, L]: columns whose total insertion weight is >= 0.5 * cov, or
+    where no base (nor the gap) reaches 0.45 * cov at coverage >= 3 (a
+    collapsed repeat longer than the band smears into mismatches), at
+    coverage >= max(min_cov, 2). The per-column majority fragments such runs
+    across co-optimal alignment phasings; these columns get the host
+    link-DP repair. The insertion weights are summed in float64."""
+    ins_w = weights[:, 1:, :4, :].sum(dim=(1, 2), dtype=torch.float64)
+    covf = coverage.clamp(min=1).to(torch.float32)
+    weak = (weights[:, 0].amax(dim=1) < 0.45 * covf) & (coverage >= 3)
+    return ((ins_w >= 0.5 * covf) | weak) & (coverage >= max(min_cov, 2))
+
+
+def consensus_stream(weights, coverage, min_cov, ins_frac, ins_offset):
+    """call_consensus compacted on the device: (stream u8[TB, SL], cum_t
+    i32[TB, L], n_emit i32[TB], cov8 u8[TB, L]). Row b of the stream holds
+    its emitted bases in (t asc, delta asc) order; cum_t[b, t] counts them
+    through column t, so a piece (s, e) is stream[b, cum_t[b, s-1]:cum_t[b,
+    e-1]]. SL = max(n_emit), read with one sync: no emitted base is dropped
+    (necat_tpu sizes the stream in advance and drops what overflows it)."""
+    emit, base = call_consensus(weights, coverage, min_cov, ins_frac, ins_offset)
+    TB, L, D = emit.shape
+    em = emit.reshape(TB, L * D)
+    idx = torch.cumsum(em, dim=1, dtype=torch.int32) - 1
+    n_emit = idx[:, -1] + 1
+    SL = int(n_emit.max()) if TB else 0
+    stream = torch.zeros((TB, SL + 1), dtype=torch.uint8, device=weights.device)
+    stream.scatter_(1, torch.where(em, idx, SL).long(), base.reshape(TB, L * D))
+    cum_t = torch.cumsum(emit.sum(dim=2, dtype=torch.int32), dim=1, dtype=torch.int32)
+    cov8 = coverage.clamp(max=255).to(torch.uint8)      # only >= min_cov is read
+    return stream[:, :SL], cum_t, n_emit, cov8
+
+
+def compact_from_stream(
+    stream: np.ndarray,    # uint8[TB, SL] (host)
+    cum_t: np.ndarray,     # int32[TB, L]
+    coverage: np.ndarray,  # int[TB, L]
+    tlens: np.ndarray,
+    templates: np.ndarray,
+    min_cov: int,
+    min_size: int,
+    raw_min_gap: int,
+    overrides: dict | None = None,   # row -> {t -> np.ndarray of bases}
+    cut_at: dict | None = None,      # row -> template positions to cut runs at
+) -> List[Tuple[List[Tuple[int, int, np.ndarray]], List[Tuple[int, int, np.ndarray]]]]:
+    """Host side of consensus_stream: per template (cns_pieces, raw_pieces)
+    as compact_from_packed gives them. `overrides` replaces the emitted bases
+    of single template positions (the link-DP hotspot repair, consensus/
+    correct.py _bucket_hot_overrides); `cut_at` splits covered runs at the
+    given positions so that no piece spans them (the window seams of
+    polish/polish.py)."""
+    out = []
+    for b in range(stream.shape[0]):
+        n = int(tlens[b])
+        cov = coverage[b, :n] >= min_cov
+        cns_pieces: List[Tuple[int, int, np.ndarray]] = []
+        raw_pieces: List[Tuple[int, int, np.ndarray]] = []
+        if n == 0:
+            out.append((cns_pieces, raw_pieces))
+            continue
+        ovr = (overrides or {}).get(b) or {}
+        dif = np.diff(np.r_[0, cov.astype(np.int8), 0])
+        starts = np.flatnonzero(dif == 1)
+        ends = np.flatnonzero(dif == -1)
+        cuts = sorted((cut_at or {}).get(b) or [])
+        if cuts:
+            s2, e2 = [], []
+            for s, e in zip(starts, ends):
+                prev = int(s)
+                for c in cuts:
+                    if prev < c < e:
+                        s2.append(prev)
+                        e2.append(c)
+                        prev = c
+                s2.append(prev)
+                e2.append(int(e))
+            starts, ends = s2, e2
+        for s, e in zip(starts, ends):
+            if e - s < min_size:
+                continue
+            lo = int(cum_t[b, s - 1]) if s > 0 else 0
+            hi = int(cum_t[b, e - 1])
+            touched = sorted(t for t in ovr if s <= t < e)
+            if touched:
+                parts = []
+                prev = int(s)
+                for t in touched:
+                    plo = int(cum_t[b, prev - 1]) if prev > 0 else 0
+                    tlo = int(cum_t[b, t - 1]) if t > 0 else 0
+                    parts.append(stream[b, plo:tlo])
+                    parts.append(np.asarray(ovr[t], np.uint8))
+                    prev = t + 1
+                plo = int(cum_t[b, prev - 1]) if prev > 0 else 0
+                parts.append(stream[b, plo:hi])
+                seq = np.concatenate(parts)
+            else:
+                seq = stream[b, lo:hi]
             if len(seq) >= min_size:
                 cns_pieces.append((int(s), int(e), seq.astype(np.uint8)))
         prev = 0

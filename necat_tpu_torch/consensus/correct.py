@@ -10,27 +10,48 @@ as one packed int32 per template column. With rescue_long_indels, pairs
 whose extension stops > 200 bp short of the candidate climb a band-doubling
 ladder (W0 * rescue_band_scale, doubling up to rescue_band_max_scale and
 shapes.MAX_BAND).
+
+Wide insertion channels (3 * max_delta > 30, the polish stage's 22) do not
+fit the packed int32: the consensus comes back as a stream of emitted bases
+instead, and columns with strong insertion evidence or no clear majority
+(hot_insertion_mask) are re-derived on the host by the reference link DP
+over the accepted alignments (_bucket_hot_overrides).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from collections import Counter
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from necat_tpu_torch.align.banded_kernels import N_INSB
+from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG
 from necat_tpu_torch.align.engine import ExtendEngine, rescue_widths
 from necat_tpu_torch.consensus import fused
-from necat_tpu_torch.consensus.backbone import compact_from_packed, consensus_packed
+from necat_tpu_torch.consensus.backbone import (compact_from_packed, compact_from_stream,
+                                               consensus_packed, consensus_stream,
+                                               hot_insertion_mask)
+from necat_tpu_torch.consensus.linkdp import (consensus_linkdp, host_edit_ops,
+                                             tags_from_ops)
 from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_device
+from necat_tpu_torch.utils.logging import logger
+
+# seconds spent in each part of correct_reads, added up over its calls (the
+# polish stage clears it and records it in its manifest): "waves" (extension
+# and scatter on the device, wave selection on the host), "consensus" (the
+# call on the device and its download), "overrides" (the host link-DP repair
+# of wide-delta hotspots), "compact" (host decoding into records); polish
+# adds "map" (its reads mapped to the contig windows)
+seconds_by_part: Counter = Counter()
 
 
 @dataclasses.dataclass
@@ -75,7 +96,6 @@ def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
         "more than one device": isinstance(device, (list, tuple)),
         "small_memory": opts.small_memory or store.total_bases >= (1 << 31),
         "fused=False": opts.fused is False,
-        "3*max_delta > 30 (stream consensus)": 3 * opts.max_delta > 30,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -86,11 +106,16 @@ def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
 def correct_reads(store: ReadStore, cands: Candidates,
                   opts: CnsOptions = CnsOptions(), *, device,
                   min_cov_for_template: int | None = None,
-                  emit_uncorrected: bool = True) -> List[CnsRecord]:
+                  emit_uncorrected: bool = True,
+                  template_cuts: dict | None = None) -> List[CnsRecord]:
     """Correct all templates that have candidates, on one `device`. `cands`
     must be role-expanded (each overlap present for both reads as templates).
     Records come in the order of necat_tpu's correct_reads: uncorrected
-    passthrough first, then templates by descending length."""
+    passthrough first, then templates by descending length.
+
+    template_cuts (template id -> positions; wide-delta mode only) splits
+    corrected pieces at those positions: the polish stage cuts its windows'
+    pieces at the core edges."""
     _check_supported(opts, store, device)
     dev = resolve_device(device)
     groups = group_by_template(cands, opts.max_examined)
@@ -112,9 +137,10 @@ def correct_reads(store: ReadStore, cands: Candidates,
     engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
     SG = opts.templates_per_batch * (opts.buckets_per_supergroup or 1)
     for s in range(0, len(tids_sorted), SG):
-        buckets = _run_supergroup(store, engine, cands, groups,
-                                  tids_sorted[s:s + SG], opts)
-        records.extend(_compact_supergroup(store, buckets, opts))
+        buckets, tpls = _run_supergroup(store, engine, cands, groups,
+                                        tids_sorted[s:s + SG], opts)
+        records.extend(_compact_supergroup(store, buckets, tpls, opts,
+                                           template_cuts or {}))
     return records
 
 
@@ -135,11 +161,12 @@ class _Bucket:
                                    device=device)
         self.covten = torch.zeros((TB + 1, self.Lt), dtype=torch.int32,
                                   device=device)
-        self.packed = None
+        self.packed = None       # consensus_packed, on the host
+        self.stream = None       # wide delta: (stream, cum_t, cov8, hot), on the host
 
 
 class _Tpl:
-    __slots__ = ("tid", "bucket", "row", "n", "cand_idx")
+    __slots__ = ("tid", "bucket", "row", "n", "cand_idx", "accepted")
 
     def __init__(self, tid, bucket, row, n, cand_idx):
         self.tid = tid
@@ -147,6 +174,9 @@ class _Tpl:
         self.row = row
         self.n = n
         self.cand_idx = cand_idx
+        # wide delta: (qid, qdir, qoff, qend, toff, tend, weight) of each
+        # accepted alignment, in wave order, for the hotspot repair
+        self.accepted = []
 
 
 class _SelState:
@@ -227,6 +257,11 @@ def _apply_cov(st: _SelState, li_acc, tl_acc, tr_acc) -> None:
     st.cov_buf += np.cumsum(d[:len(st.cov_buf)], dtype=np.int32)
 
 
+def _wide_delta(opts: CnsOptions) -> bool:
+    """3-bit fields of max_delta columns do not fit an int32 past D = 10."""
+    return 3 * opts.max_delta > 30
+
+
 def _insb_words(opts: CnsOptions) -> int:
     return min(max(-(-max(opts.max_delta - 1, 1) // N_INSB), 1), 3)
 
@@ -294,7 +329,7 @@ def _defer_ladder(run, stats, cands, p_ci, opts: CnsOptions) -> None:
         fused.collect_fused(run(sel_w, W=int(Wx)), stats, sel=sel_w)
 
 
-def _run_waves(engine, cands, buckets, opts: CnsOptions, st: _SelState) -> None:
+def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState) -> None:
     """Waves until no template has pending candidates: round 0 estimates the
     identity cutoffs (unless fixed) and scatters from the ident pass's
     retained buffers; later rounds extend, accept and scatter in one step.
@@ -372,12 +407,20 @@ def _run_waves(engine, cands, buckets, opts: CnsOptions, st: _SelState) -> None:
                 _defer_ladder(run, stats, cands, p_ci, opts)
         acc = np.flatnonzero(stats["ok"])
         _apply_cov(st, p_tpl[acc], stats["toff"][acc], stats["tend"][acc])
+        if _wide_delta(opts) and len(acc):
+            w_acc = fused.calc_cns_weight(torch.from_numpy(stats["ident"][acc])).numpy()
+            for j, i in enumerate(acc):
+                ci = p_ci[i]
+                tpls[p_tpl[i]].accepted.append(
+                    (int(cands.qid[ci]), int(cands.qdir[ci]),
+                     int(stats["qoff"][i]), int(stats["qend"][i]),
+                     int(stats["toff"][i]), int(stats["tend"][i]), float(w_acc[j])))
         round_id += 1
 
 
 def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions):
     """Waves of one supergroup, then the consensus call of each bucket;
-    returns the buckets with their packed consensus on the device."""
+    returns the buckets, their consensus downloaded, and the templates."""
     TB = opts.templates_per_batch
     buckets: List[_Bucket] = []
     tpls: List[_Tpl] = []
@@ -388,28 +431,166 @@ def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions):
             tid = int(b.ids[row])
             tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
                              groups[tid]))
-    _run_waves(engine, cands, buckets, opts, _SelState(tpls))
+    t0 = time.perf_counter()
+    _run_waves(engine, cands, buckets, tpls, opts, _SelState(tpls))
+    t1 = time.perf_counter()
     for b in buckets:
-        b.packed = consensus_packed(b.weights[:TB].to(torch.float32),
-                                    b.covten[:TB], opts.min_cov, opts.ins_frac,
-                                    opts.ins_offset)
-        b.weights = b.covten = None      # free the tensors early
-    return buckets
+        w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]
+        args = (opts.min_cov, opts.ins_frac, opts.ins_offset)
+        if _wide_delta(opts):
+            hot = hot_insertion_mask(w, cov, opts.min_cov)
+            stream, cum_t, _, cov8 = consensus_stream(w, cov, *args)
+            b.stream = tuple(x.cpu().numpy() for x in (stream, cum_t, cov8, hot))
+        else:
+            b.packed = consensus_packed(w, cov, *args).cpu().numpy()
+        b.weights = b.covten = w = cov = None      # free the tensors early
+    seconds_by_part["waves"] += t1 - t0
+    seconds_by_part["consensus"] += time.perf_counter() - t1
+    return buckets, tpls
 
 
-def _compact_supergroup(store, buckets, opts: CnsOptions) -> List[CnsRecord]:
+def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
+                        template_cuts: dict) -> List[CnsRecord]:
     records: List[CnsRecord] = []
-    for b in buckets:
+    for bi, b in enumerate(buckets):
         tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
-        # full consensus (-f 1) keeps reads whole: covered-run threshold
-        # drops to 0.85*min_size (cbcns.c:200)
-        min_run = (max(1, int(opts.min_size * 0.85))
-                   if opts.full_consensus else None)
-        pieces = compact_from_packed(b.packed.cpu().numpy(), b.tlens, tbatch_np,
-                                     opts.min_size, opts.raw_min_gap,
-                                     max_delta=opts.max_delta, min_run=min_run)
+        if b.stream is not None:
+            stream, cum_t, cov8, hot = b.stream
+            t0 = time.perf_counter()
+            overrides = _bucket_hot_overrides(store, bi, tpls, hot, tbatch_np)
+            t1 = time.perf_counter()
+            cuts = {r_: template_cuts[int(b.ids[r_])] for r_ in range(b.n_real)
+                    if int(b.ids[r_]) in template_cuts}
+            pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
+                                         opts.min_cov, opts.min_size, opts.raw_min_gap,
+                                         overrides=overrides, cut_at=cuts)
+            seconds_by_part["overrides"] += t1 - t0
+        else:
+            t1 = time.perf_counter()
+            # full consensus (-f 1) keeps reads whole: covered-run threshold
+            # drops to 0.85*min_size (cbcns.c:200)
+            min_run = (max(1, int(opts.min_size * 0.85))
+                       if opts.full_consensus else None)
+            pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
+                                         opts.min_size, opts.raw_min_gap,
+                                         max_delta=opts.max_delta, min_run=min_run)
         records.extend(_emit_records(b, pieces, tbatch_np, opts))
+        seconds_by_part["compact"] += time.perf_counter() - t1
     return records
+
+
+def _bucket_hot_overrides(store, bi: int, tpls, hot: np.ndarray,
+                          tbatch_np: np.ndarray, pad: int = 60) -> dict:
+    """Link-DP repair of the insertion hotspots of bucket bi (wide-delta
+    mode): row -> {template position -> bases it emits instead}.
+
+    Long insertion runs (a contig missing a chunk every read contains) split
+    across co-optimal alignment phasings, so no single (t, delta) cell wins
+    the majority vote. For each hotspot region the covering read segments
+    are re-aligned to the local template on the host (one aligner, one
+    phasing), the reference link DP (consensus_linkdp) reassembles them, and
+    the result overrides the region's emissions. Reference: ctg_cns u16-delta
+    consensus (fc_correct_one_read.c) + cns_aux.c:127-217."""
+    overrides: dict = {}
+    for t_ in tpls:
+        if t_.bucket != bi or not t_.accepted:
+            continue
+        row = t_.row
+        n = t_.n
+        hot_pos = np.flatnonzero(hot[row, :n])
+        if len(hot_pos) == 0:
+            continue
+        # the query surplus (a collapsed repeat's length) from the accepted
+        # alignments' skew: the region window must reach further than the
+        # surplus on each side, or every semiglobal alignment prefers
+        # truncating the window (cost = remaining context) over threading
+        # the insertion (cost = surplus)
+        surplus = 0
+        for (qid, qdir, qo, qe, to, te, w) in t_.accepted:
+            surplus = max(surplus, (qe - qo) - (te - to))
+        rpad = pad + min(int(surplus * 3 // 2), 5000)
+        gap_merge = max(50, rpad)
+        regions = []                     # hot positions clustered
+        rs = re = int(hot_pos[0])
+        for t in hot_pos[1:]:
+            if t - re <= gap_merge:
+                re = int(t)
+            else:
+                regions.append((rs, re + 1))
+                rs = re = int(t)
+        regions.append((rs, re + 1))
+        row_ovr: dict = {}
+        for (rs, re) in regions:
+            lo, hi = max(0, rs - rpad), min(n, re + rpad)
+            if hi - lo > 100000:
+                logger.warning("hotspot region %d bp at row %d skipped (>100 kb)",
+                               hi - lo, row)
+                continue
+            t_local = tbatch_np[row, lo:hi].astype(np.uint8)
+            # 1. the read segments spanning the window (a semiglobal trim
+            # against the draft absorbs the interpolation drift)
+            segs = []
+            for (qid, qdir, qo, qe, to, te, w) in t_.accepted:
+                if to >= hi or te <= lo:
+                    continue
+                span_t = max(te - to, 1)
+                drift = 60 + span_t // 100
+                qs = qo + (qe - qo) * (lo - to) // span_t
+                q2 = qo + (qe - qo) * (hi - to) // span_t
+                qs = max(qo, qs - drift)
+                q2 = min(qe, q2 + drift)
+                if q2 - qs < (min(hi, te) - max(lo, to)) // 2:
+                    continue
+                seq = store.get(qid)
+                if qdir:
+                    seq = (3 - seq[::-1]).astype(np.uint8)
+                qseg = np.asarray(seq[qs:q2], np.uint8)
+                ops, q_start, q_end = host_edit_ops(qseg, t_local)
+                if q_end - q_start < (hi - lo) // 2:
+                    continue
+                segs.append((qseg[q_start:q_end], float(w)))
+            if len(segs) < 2:
+                # two concordant segments already outvote the draft's omission
+                continue
+            # 2. local reassembly against the median segment as backbone: it
+            # contains what the draft misses, so the segments' alignments
+            # have no systematic insertion runs and the link DP threads them
+            segs.sort(key=lambda s: len(s[0]))
+            backbone = segs[len(segs) // 2][0]
+            all_tags = []
+            for (sg, w) in segs:
+                ops, q_start, _ = host_edit_ops(sg, backbone)
+                tg = tags_from_ops(ops, len(ops), sg, qoff=q_start, toff=0,
+                                   weight=w, max_delta=65535)
+                if tg:
+                    all_tags.extend(tg)
+            S, _, _ = consensus_linkdp(all_tags, len(backbone))
+            if len(S) < (hi - lo) // 2:
+                continue
+            # 3. the reassembly aligned back to the draft window: its
+            # emissions per template column become the overrides
+            ops2, _, _ = host_edit_ops(S, t_local)
+            per_t: dict = {}
+            j = -1
+            qp = 0
+            for op in ops2:
+                if op == OP_DIAG:
+                    j += 1
+                    per_t.setdefault(j, []).append(int(S[qp]))
+                    qp += 1
+                elif op == OP_DEL:
+                    j += 1
+                    per_t.setdefault(j, [])
+                else:            # OP_INS: after column j's emissions
+                    if j >= 0:
+                        per_t.setdefault(j, []).append(int(S[qp]))
+                    qp += 1
+            for t in range(rs, re):
+                if (t - lo) in per_t:
+                    row_ovr[t] = np.array(per_t[t - lo], np.uint8)
+        if row_ovr:
+            overrides[row] = row_ovr
+    return overrides
 
 
 def _emit_records(b: _Bucket, pieces, tbatch_np, opts: CnsOptions) -> List[CnsRecord]:

@@ -15,6 +15,10 @@ import os
 
 import numpy as np
 
+_FIELDS = ("qid", "sid", "ident", "vscore", "qdir", "qoff", "qend", "qsize",
+           "sdir", "soff", "send", "ssize")
+
+
 @dataclasses.dataclass
 class M4Records:
     qid: np.ndarray
@@ -38,6 +42,42 @@ class M4Records:
         z = np.zeros(0, np.int32)
         return cls(z, z, np.zeros(0, np.float32), z, z.astype(np.int8), z, z, z,
                    z.astype(np.int8), z, z, z)
+
+    @staticmethod
+    def concat(parts) -> "M4Records":
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return M4Records.empty()
+        return M4Records(*[np.concatenate([getattr(p, f) for p in parts]) for f in _FIELDS])
+
+    def take(self, idx) -> "M4Records":
+        return M4Records(*[getattr(self, f)[idx] for f in _FIELDS])
+
+    def swap_roles(self) -> "M4Records":
+        """Duplicate-with-roles-swapped (trim pm4 fix_asm_m4_offsets,
+        src/trim_bases/pm4_aux.c:117-139), keeping sdir FWD by mirroring
+        coordinates when qdir is REV (like Candidates.swap_roles)."""
+        rev = self.qdir == 1
+        return M4Records(
+            qid=self.sid.copy(), sid=self.qid.copy(),
+            ident=self.ident.copy(), vscore=self.vscore.copy(),
+            qdir=self.qdir.copy(),
+            qoff=np.where(rev, self.ssize - self.send, self.soff).astype(np.int32),
+            qend=np.where(rev, self.ssize - self.soff, self.send).astype(np.int32),
+            qsize=self.ssize.copy(),
+            sdir=np.zeros(len(self), np.int8),
+            soff=np.where(rev, self.qsize - self.qend, self.qoff).astype(np.int32),
+            send=np.where(rev, self.qsize - self.qoff, self.qend).astype(np.int32),
+            ssize=self.qsize.copy(),
+        )
+
+    def fwd_query_range(self):
+        """(qoff, qend) mirrored onto the forward query strand
+        (is_qualified_m4, src/trim_bases/largest_cover_range.c:42-50)."""
+        rev = self.qdir == 1
+        qoff = np.where(rev, self.qsize - self.qend, self.qoff)
+        qend = np.where(rev, self.qsize - self.qoff, self.qend)
+        return qoff, qend
 
     def save(self, path: str | os.PathLike) -> None:
         """Write .m4 text (gzip if path ends with .gz)."""

@@ -1,7 +1,8 @@
 """Read sets -> candidates -> extended M4 overlaps, on one device
-(counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates and
+(counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates,
 extend_candidates with its long-indel rescue ladder, which the JAX
-package's callers all leave on at its default scales)."""
+package's callers all leave on at its default scales, and
+overlap_all_vs_all of one read volume)."""
 
 from __future__ import annotations
 
@@ -155,3 +156,14 @@ def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *
         qend=out["qend"][ki].astype(np.int32), qsize=cands.qsize[ki],
         sdir=np.zeros(len(ki), np.int8), soff=out["toff"][ki].astype(np.int32),
         send=out["tend"][ki].astype(np.int32), ssize=cands.ssize[ki])
+
+
+def overlap_all_vs_all(store: ReadStore, opts: MapOptions, *, device) -> M4Records:
+    """All-vs-all overlaps of one read set on `device`, each reported once
+    (from the read later in the store); M4Records.swap_roles gives the other
+    read's view. Every caller of the JAX package's version takes its default
+    extension (band 128, min_align_size 400, min_ident 0). One read volume
+    only: the volume tiling (vol_size, candidates_by_volumes) is not ported,
+    and the stages refuse read sets that would need it."""
+    cands = find_all_candidates(store, store, opts, pairwise=True, device=device)
+    return extend_candidates(cands, store, store, device=device)

@@ -1,10 +1,11 @@
-"""Command line of the PyTorch port (necat.pl commands; correct only so far).
+"""Command line of the PyTorch port (necat.pl commands; bridge not yet).
 
-  python -m necat_tpu_torch.pipeline.cli config  <cfg>                       # config template
-  python -m necat_tpu_torch.pipeline.cli correct <cfg> --device {cuda,cpu}   # correct raw reads
+  python -m necat_tpu_torch.pipeline.cli config   <cfg>                       # config template
+  python -m necat_tpu_torch.pipeline.cli correct  <cfg> --device {cuda,cpu}   # correct raw reads
+  python -m necat_tpu_torch.pipeline.cli assemble <cfg> --device {cuda,cpu}   # correct + trim + assemble [+ polish]
 
 `--device` has no default: "cuda" runs the CUDA kernels, "cpu" their plain
-PyTorch versions. `assemble` and `bridge` are not ported yet.
+PyTorch versions. `bridge` is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,16 +17,16 @@ from necat_tpu_torch.pipeline import config as config_mod
 from necat_tpu_torch.pipeline.stages import Project
 from necat_tpu_torch.utils.logging import logger
 
-NOT_PORTED = ("assemble", "bridge")
+NOT_PORTED = ("bridge",)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m necat_tpu_torch.pipeline.cli",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("command", choices=("config", "correct") + NOT_PORTED)
+    ap.add_argument("command", choices=("config", "correct", "assemble") + NOT_PORTED)
     ap.add_argument("cfg")
     ap.add_argument("--device", choices=("cuda", "cpu"),
-                    help="required for correct: where the kernels run")
+                    help="required for correct and assemble: where the kernels run")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if args.command in NOT_PORTED:
         print(f"{args.command}: not ported to necat_tpu_torch yet "
@@ -36,9 +37,17 @@ def main(argv=None) -> int:
         print(f"wrote config template to {args.cfg}")
         return 0
     if args.device is None:
-        ap.error("correct needs --device cuda or --device cpu")
+        ap.error(f"{args.command} needs --device cuda or --device cpu")
     cfg = config_mod.load_config(args.cfg)
-    out = Project(cfg, cfg.project).run_correct(device=args.device)
+    prj = Project(cfg, cfg.project)
+    if args.command == "correct":
+        out = prj.run_correct(device=args.device)
+    else:
+        out = prj.run_assemble(device=args.device)
+        if cfg.polish:
+            out = prj.run_polish(out, "final", device=args.device)
+    if cfg.get("CLEANUP", "0") in ("1", "true"):
+        prj.cleanup()
     logger.info("final output: %s", out)
     print(out)
     return 0

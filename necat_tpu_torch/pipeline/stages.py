@@ -1,5 +1,5 @@
-"""Pipeline stages with resume (counterpart of necat_tpu/pipeline/stages.py;
-the correct stage only, on one device).
+"""Pipeline stages with resume (counterpart of necat_tpu/pipeline/stages.py:
+correct, trim, assemble and polish, on one device and one host).
 
 Each stage writes its outputs and a `<name>.done.json` manifest (input
 fingerprints and the parameters it ran with); a stage runs again only when
@@ -19,14 +19,19 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from necat_tpu_torch.assembly.contigs import AssembleOptions, assemble
+from necat_tpu_torch.assembly.overlap_filter import FilterOptions
+from necat_tpu_torch.consensus import correct as correct_mod
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.correct import correct_reads
 from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.overlap.options import MapOptions
-from necat_tpu_torch.overlap.overlapper import find_all_candidates
+from necat_tpu_torch.overlap.overlapper import find_all_candidates, overlap_all_vs_all
 from necat_tpu_torch.pipeline.config import Config
+from necat_tpu_torch.polish.polish import polish_contigs
+from necat_tpu_torch.trim.lcr import TrimOptions, trim_reads
 from necat_tpu_torch.utils.logging import logger
 
 
@@ -98,7 +103,7 @@ def load_raw_reads(cfg: Config, keep_coverage: float = 0.0) -> ReadStore:
     return ReadStore.concat(parts)
 
 
-def _check_supported(cfg: Config, store: ReadStore) -> None:
+def _check_supported(cfg: Config, store: ReadStore, stage: str) -> None:
     """One host, one read volume: refuse the rest rather than run something
     else."""
     unsupported = {
@@ -109,7 +114,7 @@ def _check_supported(cfg: Config, store: ReadStore) -> None:
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError(f"necat_tpu_torch run_correct: {', '.join(bad)} "
+        raise NotImplementedError(f"necat_tpu_torch {stage}: {', '.join(bad)} "
                                   "not ported")
 
 
@@ -123,6 +128,13 @@ class Project:
 
     def path(self, *parts) -> str:
         return os.path.join(self.root, *parts)
+
+    def _opt_params(self, *keys: str) -> dict:
+        """The config option strings a stage consumes, for its manifest:
+        editing one (say FSA_OL_FILTER_OPTIONS) reruns the stage, as the
+        reference reruns a job whose script text changed (Plgd/Project.pm:
+        131-177)."""
+        return {k: self.cfg.get(k, "") for k in keys}
 
     def run_correct(self, *, device) -> str:
         """necat.pl correct (runConsensus) on `device`; returns the path of
@@ -145,7 +157,7 @@ class Project:
 
         def fn():
             cur = load_raw_reads(cfg, keep_coverage=cfg.prep_output_coverage)
-            _check_supported(cfg, cur)
+            _check_supported(cfg, cur, "run_correct")
             iterations = []
             for it in range(cfg.num_iter):
                 logger.info("correction iteration %d/%d: %d reads",
@@ -190,8 +202,141 @@ class Project:
         params = {"num_iter": cfg.num_iter, "cov": cfg.prep_output_coverage,
                   "cns_cov": cfg.cns_output_coverage,
                   "min_read_length": cfg.min_read_length,
-                  **{k: cfg.get(k, "") for k in (
-                      "OVLP_SENSITIVE_OPTIONS", "CNS_SENSITIVE_OPTIONS",
-                      "OVLP_FAST_OPTIONS", "CNS_FAST_OPTIONS", "SMALL_MEMORY")}}
+                  **self._opt_params("OVLP_SENSITIVE_OPTIONS", "CNS_SENSITIVE_OPTIONS",
+                                     "OVLP_FAST_OPTIONS", "CNS_FAST_OPTIONS",
+                                     "SMALL_MEMORY")}
         _stage(wd, "correct", ifiles, [out], params, fn)
         return out
+
+    def _overlaps(self, reads: ReadStore, key: str, stage: str, device):
+        """All-vs-all overlaps of reads with the option string cfg[key] over
+        the assembly overlapper's defaults (-n 100, two chains per pair)."""
+        _check_supported(self.cfg, reads, stage)
+        mopts = MapOptions.from_string(self.cfg.get(key, ""),
+                                       MapOptions(ncan=100, n_chains_per_pair=2))
+        return overlap_all_vs_all(reads, mopts, device=device)
+
+    def run_trim(self, *, device) -> str:
+        """Trim stage (runTrimBases, TRIM_METHOD fast): all-vs-all overlaps of
+        the corrected reads on `device`, then each read clipped to its largest
+        cover range on the host. Returns the path of trimReads.fasta.gz; the
+        manifest records the seconds of both parts."""
+        method = self.cfg.get("TRIM_METHOD", "fast").strip() or "fast"
+        if method != "fast":
+            raise NotImplementedError(f"necat_tpu_torch run_trim: TRIM_METHOD={method} "
+                                      "not ported")
+        cns = self.run_correct(device=device)
+        wd = self.path("2-trim_bases")
+        out = self.path("trimReads.fasta.gz")
+
+        def fn():
+            reads = ReadStore.from_fasta(cns)
+            t0 = time.perf_counter()
+            m4 = self._overlaps(reads, "TRIM_OVLP_OPTIONS", "run_trim", device)
+            t1 = time.perf_counter()
+            trimmed, _, _ = trim_reads(reads, m4, TrimOptions())
+            t2 = time.perf_counter()
+            trimmed.to_fasta(out)
+            logger.info("trimmed (%s): %d/%d reads kept", method, trimmed.n_reads,
+                        reads.n_reads)
+            return {"overlap_s": t1 - t0, "trim_s": t2 - t1}
+
+        _stage(wd, "trim", [cns], [out],
+               {"method": method, **self._opt_params("TRIM_OVLP_OPTIONS")}, fn)
+        return out
+
+    def run_assemble(self, *, device) -> str:
+        """Assembly (runAlignReads + runAssemble): all-vs-all overlaps of the
+        trimmed reads on `device` (4-fsa/pm.m4.gz), then the overlap filter,
+        string graph, path graph and contigs on the host (4-fsa/contigs.fasta,
+        bubbles.fasta, contig_tiles, bubble_tiles, readinfos.json/.txt).
+        Returns the contigs' path."""
+        trimmed_path = self.run_trim(device=device)
+        wd = self.path("4-fsa")
+        out = os.path.join(wd, "contigs.fasta")
+
+        def fn():
+            trimmed = ReadStore.from_fasta(trimmed_path)
+            t0 = time.perf_counter()
+            m4 = self._overlaps(trimmed, "ASM_OVLP_OPTIONS", "run_assemble", device)
+            t1 = time.perf_counter()
+            m4.save(os.path.join(wd, "pm.m4.gz"))
+            # FSA_* option strings go verbatim to the fsa layer, as necat.pl
+            # passes them to its binaries (necat.pl:1228-1245)
+            aopts = AssembleOptions.from_string(self.cfg.get("FSA_ASSEMBLE_OPTIONS", ""))
+            res = assemble(trimmed, m4,
+                           FilterOptions.from_string(self.cfg.get("FSA_OL_FILTER_OPTIONS", "")),
+                           min_contig_length=aopts.min_contig_length,
+                           max_spur_length=aopts.max_spur_length,
+                           select_branch=aopts.select_branch)
+            t2 = time.perf_counter()
+            res.contigs.to_fasta(out)
+            res.bubbles.to_fasta(os.path.join(wd, "bubbles.fasta"))
+            with open(os.path.join(wd, "contig_tiles"), "w") as f:
+                for ci, tiles in enumerate(res.tiles):
+                    for t in tiles:
+                        f.write(f"ctg{ci}\t{t.read}\t{t.orient}\t{t.ctg_start}\t{t.ctg_end}\n")
+            with open(os.path.join(wd, "bubble_tiles"), "w") as f:
+                for bi, tiles in enumerate(res.bubble_tiles):
+                    for t in tiles:
+                        f.write(f"{res.bubbles.names[bi]}\t{t.read}\t{t.orient}\t"
+                                f"{t.ctg_start}\t{t.ctg_end}\n")
+            # ol_filter's readinfos (overlap_filter.hpp:162-167): per-read mean
+            # identity and coverage range, and the bridge stage's auto params
+            with open(os.path.join(wd, "readinfos.json"), "w") as f:
+                json.dump({"min_identity": res.min_identity,
+                           "max_overhang": res.max_overhang}, f)
+            if res.read_ident is not None:
+                with open(os.path.join(wd, "readinfos.txt"), "w") as f:
+                    for r in range(len(res.read_ident)):
+                        if np.isnan(res.read_ident[r]):
+                            continue
+                        cmin, cmax = (res.read_cov[r] if res.read_cov is not None
+                                      else (0, 0))
+                        f.write(f"{r}\t{res.read_ident[r]:.2f}\t{cmin}\t{cmax}\n")
+            n50, _ = res.contigs.n50()
+            logger.info("contigs: %d, total %d, N50 %d", res.contigs.n_reads,
+                        res.contigs.total_bases, n50)
+            return {"overlap_s": t1 - t0, "assemble_s": t2 - t1}
+
+        _stage(wd, "assemble", [trimmed_path], [out],
+               self._opt_params("ASM_OVLP_OPTIONS", "FSA_OL_FILTER_OPTIONS",
+                                "FSA_ASSEMBLE_OPTIONS"), fn)
+        return out
+
+    def run_polish(self, ctg_path: str, tag: str, *, device) -> str:
+        """Polish the contigs at ctg_path with the raw reads on `device`
+        (runPolishContigs); returns polished_contigs.fasta for tag "final",
+        else <tag>_polished.fasta. The manifest records the seconds of each
+        part (correct_mod.seconds_by_part: map, waves, consensus, overrides,
+        compact) and the pairs extended at each band width."""
+        wd = self.path(f"{tag}-polish")
+        out = self.path("polished_contigs.fasta" if tag == "final"
+                        else f"{tag}_polished.fasta")
+
+        def fn():
+            contigs = ReadStore.from_fasta(ctg_path)
+            reads = load_raw_reads(self.cfg)
+            _check_supported(self.cfg, reads, "run_polish")
+            correct_mod.seconds_by_part.clear()
+            fused.pairs_by_band.clear()
+            pol = polish_contigs(contigs, reads, device=device)
+            pol.to_fasta(out)
+            logger.info("polished: %d contigs, total %d, N50 %d", pol.n_reads,
+                        pol.total_bases, pol.n50()[0])
+            return {"seconds_by_part": dict(correct_mod.seconds_by_part),
+                    "pairs_by_band": {str(w): n for w, n in
+                                      sorted(fused.pairs_by_band.items())}}
+
+        _stage(wd, "polish", [ctg_path], [out],
+               self._opt_params("POLISH_OVLP_OPTIONS", "POLISH_CNS_OPTIONS"), fn)
+        return out
+
+    def cleanup(self) -> None:
+        """CLEANUP=1: delete the intermediate overlap file after a
+        successful run (the reference's mfiles deletion, Plgd/Project.pm:
+        168-170). Stage outputs and manifests stay, so resume still works."""
+        p = self.path("4-fsa", "pm.m4.gz")
+        if os.path.exists(p):
+            os.remove(p)
+            logger.info("cleanup: removed %s", p)

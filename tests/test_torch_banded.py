@@ -72,7 +72,7 @@ def test_banded_forward_reads_rows_as_pallas(jax_static_band_wide, W):
     np.testing.assert_array_equal(cost.numpy(), np.asarray(cost_j))
 
 
-@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 2)])
+@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 2), (256, 3)])
 def test_backtrack_matches_pallas(W, words):
     PB, L = 16, 512
     a, b, la, lb = band_pairs(11, PB, L, W)
@@ -91,7 +91,7 @@ def test_backtrack_matches_pallas(W, words):
     assert (cols.numpy() >> 5).max() > 0        # insertion runs were exercised
 
 
-@pytest.mark.parametrize("insb_words", [1, 2])
+@pytest.mark.parametrize("insb_words", [1, 2, 3])
 def test_extend_batch_matches_jax_static_band(jax_static_band, insb_words):
     P, L, W = 8, 1024, 64
     args = extension_batch(3, P, L)

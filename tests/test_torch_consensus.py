@@ -93,8 +93,7 @@ def test_cutoff_from_idents_matches_jax():
 def test_correct_reads_refuses_unported_modes():
     jrs, rs = small_store(G=6000, coverage=2)
     empty = Candidates.concat([])
-    for opts in (CnsOptions(small_memory=True), CnsOptions(fused=False),
-                 CnsOptions(max_delta=11)):
+    for opts in (CnsOptions(small_memory=True), CnsOptions(fused=False)):
         with pytest.raises(NotImplementedError):
             correct_reads(rs, empty, opts, device="cpu")
     with pytest.raises(NotImplementedError):

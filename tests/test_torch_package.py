@@ -103,8 +103,8 @@ def _check_kernels(cpu, dev, W, words, max_cols=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 2), (512, 2),
-                                     (1024, 1)])
+@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 2), (256, 3),
+                                     (512, 2), (1024, 1), (1024, 3)])
 def test_cuda_kernels_match_plain(cuda_device, W, words):
     PB, L = 37, 1024          # PB not a multiple of the warps per block
     cpu = _pairs(W + words, PB, L, W)

@@ -74,11 +74,13 @@ def test_cli(tmp_path, capsys):
     cfg = tmp_path / "t.cfg"
     assert cli.main(["config", str(cfg)]) == 0
     assert config_mod.load_config(cfg).num_iter == 2
-    for cmd in ("assemble", "bridge"):
-        assert cli.main([cmd, str(cfg)]) != 0
-        assert "not ported" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as e:                   # no default device
-        cli.main(["correct", str(cfg)])
-    assert e.value.code != 0
+    assert cli.main(["bridge", str(cfg)]) != 0
+    assert "not ported" in capsys.readouterr().err
+    for cmd in ("correct", "assemble"):
+        with pytest.raises(SystemExit) as e:               # no default device
+            cli.main([cmd, str(cfg)])
+        assert e.value.code != 0
+        assert "--device" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["correct", str(cfg), "--device", "tpu"])
+
