@@ -54,11 +54,33 @@ Phases, each failing the run on error:
              than JAX_CPU_ASSEMBLY_REFERENCE's - 0.5 and fall below the
              draft's by no more than the reference's own polish loses + 0.5.
              Stage seconds come from the stages' manifests.
-Phase 3 also runs W=256 (K3 with 3 insb words, as polish runs it) and phase
-6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
-(main, rescue, correct, polish, assemble) and read after it. It prints one JSON line of kernel results, the card line, and
-last a JSON status line {"ok": true, "device": {...}}. Without CUDA it exits
-non-zero before printing any result. It imports nothing of necat_tpu.
+ 11. bridge  (a) bridge_contigs of tests/test_bridge.py's two-contig case
+             on "cuda" against "cpu": identical bridged contigs; (b) the
+             bench genome cut into five contigs (gaps, an overlap, one
+             reverse-complemented, ids shuffled) bridged with the bench
+             set's raw reads on "cuda" (reads mapped at band 256 with its
+             ladder 1024-4096, contigs to contigs): K1 and K3 must launch at
+             256 and K2 never, and the contigs' count, total length and
+             identity must stay within the margins of
+             JAX_CPU_BRIDGE_REFERENCE;
+ 12. bridge-cli `python -m necat_tpu_torch.pipeline.cli bridge <cfg> --device
+             cuda` on phase 8's project: correct, trim and assemble are
+             skipped by their manifests, bridge passes the one contig
+             through and polish runs again; the bridged and polished contigs
+             must equal phase 10's;
+ 13. trim-accurate (a) trim_reads_accurate on 12 of phase 4's reads on "cuda"
+             against "cpu": identical trimmed reads, ids and ranges; (b)
+             `cli assemble` with TRIM_METHOD=accurate on phase 8's project
+             (trim, assemble and polish run again): the trim stage's
+             consensus must run K1 and K3 at 128, a contig must hold >= 50 %
+             of the genome and the draft's identity must be no more than
+             0.5 points below phase 10's.
+Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
+it, and 3, as polish runs it) and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
+(main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate)
+and read after it. It prints one JSON line of kernel results, the card line,
+and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
+exits non-zero before printing any result. It imports nothing of necat_tpu.
 """
 
 from __future__ import annotations
@@ -92,12 +114,23 @@ KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
 # its polished identity, and no more than 0.5 points more lost to polishing.
 JAX_CPU_ASSEMBLY_REFERENCE = {"contigs": 1, "contig_n50": 199982,
                               "draft_identity": 99.953, "polished_identity": 99.862}
+# necat_tpu's bridge_contigs of phase 11b's contigs and reads on the CPU
+# (the adaptive band; scripts/jax_bridge_reference.py, 130 s wall): phase
+# 11b must give as many contigs, a total within 0.5 % of this one, and an
+# identity (contig_identity) no more than 0.5 points lower.
+JAX_CPU_BRIDGE_REFERENCE = {"contigs": 1, "total": 198778, "identity": 99.758}
 RUNGS = (512, 1024, 2048, 4096)      # the rescue ladder's widths from W0=128
 POLISH_W = 256                       # PolishOptions.band_width
 POLISH_WORDS = 3                     # K3's insb words at max_delta 22
 WORDS3_RUNGS = (1024,)               # rungs where K3 is also held at POLISH_WORDS
 WIDE = (2048, 4096)                  # rungs the rescue phase must launch K1 and K3 at
 RESCUE_INSERTS = (0, 300, 0, 600, 1000, 0)
+SLICE_MAP = dict(kmer_size=13, max_hits=1 << 18, max_pairs=4096)   # slice_store's MapOptions
+# phase 11b: (start, end, reverse-complemented) of the bench genome's pieces
+# that stand for contigs, and their order in the contig store
+BRIDGE_PIECES = ((0, 45_000, False), (47_000, 90_000, False), (87_000, 130_000, True),
+                 (131_500, 170_000, False), (173_000, 200_000, False))
+BRIDGE_ORDER = (3, 0, 4, 2, 1)
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
@@ -296,20 +329,26 @@ def _same_records(ra, rb) -> None:
             raise AssertionError(f"records differ at template {x.tid}")
 
 
+def slice_store():
+    """The small read set of the slice and trim-accurate phases (19 reads of
+    3-5.5 kb at 6x of a 12 kb genome, tests/torch_port_helpers.small_store)."""
+    from necat_tpu_torch.io import simulate
+    from necat_tpu_torch.io.readstore import ReadStore
+    genome = simulate.random_genome(12000, seed=33)
+    reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,
+                                        min_len=3000, max_len=5500, seed=34)
+    return ReadStore.from_seqs(reads)
+
+
 def check_slice(dev) -> None:
     """Small read set: the cuda path equals the cpu path (plain versions)."""
     from necat_tpu_torch.consensus.correct import correct_reads
     from necat_tpu_torch.consensus.options import CnsOptions
-    from necat_tpu_torch.io import simulate
-    from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.overlap.candidates import Candidates
     from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
-    genome = simulate.random_genome(12000, seed=33)
-    reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,
-                                        min_len=3000, max_len=5500, seed=34)
-    rs = ReadStore.from_seqs(reads)
-    mo = MapOptions(kmer_size=13, max_hits=1 << 18, max_pairs=4096)
+    rs = slice_store()
+    mo = MapOptions(**SLICE_MAP)
     co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32)
     recs = {}
     for d in ("cpu", dev):
@@ -647,9 +686,22 @@ def contig_identity(contigs, genome, piece: int = 10_000, k: int = 21):
     return (100.0 * (1 - edits / placed) if placed else None), placed, total
 
 
-def check_assemble(launch_counts: dict, cfg_path: str, genome) -> None:
-    """The CLI's assemble command on phase 8's project: correct is skipped
-    by its manifest; trim, assemble and polish run on "cuda"."""
+def bridge_bench_contigs(genome):
+    """Phase 11b's contigs: the bench genome cut into BRIDGE_PIECES (gaps of
+    2, 1.5 and 3 kb, and a 3 kb overlap between pieces 1 and 2, piece 2
+    reverse-complemented), piece BRIDGE_ORDER[i] stored at id i. Returns
+    (sequences, names)."""
+    from necat_tpu_torch.io import seqio
+    seqs = [seqio.revcomp(genome[s:e]) if rc else genome[s:e].copy()
+            for s, e, rc in BRIDGE_PIECES]
+    return [seqs[i] for i in BRIDGE_ORDER], [f"piece{i}" for i in BRIDGE_ORDER]
+
+
+def _run_assemble(launch_counts: dict, path: str, cfg_path: str, genome) -> dict:
+    """`cli assemble <cfg_path> --device cuda` on phase 8's project, the
+    launch counts set to 0 before it and read after it into
+    launch_counts[path]; prints and returns the stage manifests (trim,
+    assemble, polish), the contigs and their identity to the genome."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.pipeline import cli
@@ -661,9 +713,9 @@ def check_assemble(launch_counts: dict, cfg_path: str, genome) -> None:
     rc = cli.main(["assemble", cfg_path, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launch_counts["assemble"] = _launches(bk)
+    launch_counts[path] = _launches(bk)
     if rc != 0:
-        raise AssertionError(f"assemble: the command line exited {rc}")
+        raise AssertionError(f"{path}: the command line exited {rc}")
     stages = {}
     for name, sub in (("trim", "2-trim_bases"), ("assemble", "4-fsa"),
                       ("polish", "final-polish")):
@@ -673,30 +725,38 @@ def check_assemble(launch_counts: dict, cfg_path: str, genome) -> None:
     draft = ReadStore.from_fasta(os.path.join(prj, "4-fsa", "contigs.fasta"))
     polished = ReadStore.from_fasta(os.path.join(prj, "polished_contigs.fasta"))
     t1 = time.perf_counter()
-    ident = {name: contig_identity(st, genome) for name, st in
+    ident = {name: contig_identity(st, genome)[0] for name, st in
              (("draft", draft), ("polished", polished))}
+    counts = launch_counts[path]
+    res = {"wall_s": wall, "stages": stages,
+           "contigs": draft.n_reads, "contig_bases": int(draft.total_bases),
+           "contig_n50": draft.n50()[0], "longest": int(draft.lengths.max(initial=0)),
+           "polished_bases": int(polished.total_bases), "polished_n50": polished.n50()[0],
+           "identity_pct": ident, "identity_s": time.perf_counter() - t1,
+           "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+           "launches": {f"{k}@{w}": n for (k, w), n in sorted(counts["by_width"].items())},
+           "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in
+                           sorted(counts["k3_by_words"].items())}}
+    print(f"{path} " + json.dumps({**res, "jax_cpu_reference": JAX_CPU_ASSEMBLY_REFERENCE}),
+          flush=True)
+    if any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"{path}: K2 launched: {dict(counts['by_width'])}")
+    if draft.lengths.max(initial=0) < 0.5 * len(genome):
+        raise AssertionError(f"{path}: no contig holds half of the genome")
+    return res
+
+
+def check_assemble(launch_counts: dict, cfg_path: str, genome) -> dict:
+    """The CLI's assemble command on phase 8's project: correct is skipped
+    by its manifest; trim, assemble and polish run on "cuda"."""
+    res = _run_assemble(launch_counts, "assemble", cfg_path, genome)
     counts = launch_counts["assemble"]
-    print("assemble " + json.dumps({
-        "wall_s": wall, "stages": stages,
-        "contigs": draft.n_reads, "contig_bases": int(draft.total_bases),
-        "contig_n50": draft.n50()[0], "longest": int(draft.lengths.max(initial=0)),
-        "polished_bases": int(polished.total_bases), "polished_n50": polished.n50()[0],
-        "identity_pct": {k: v[0] for k, v in ident.items()},
-        "placed_bases": {k: [v[1], v[2]] for k, v in ident.items()},
-        "identity_s": time.perf_counter() - t1,
-        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
-        "launches": {f"{k}@{w}": n for (k, w), n in sorted(counts["by_width"].items())},
-        "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in
-                        sorted(counts["k3_by_words"].items())},
-        "jax_cpu_reference": JAX_CPU_ASSEMBLY_REFERENCE}), flush=True)
     missing = [(k, w) for k in ON_PATH for w in (128, POLISH_W)
                if not counts["by_width"].get((k, w))]
-    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
-        raise AssertionError(f"assemble: K1 and K3 must launch at 128 and {POLISH_W} "
-                             f"and K2 not: {dict(counts['by_width'])}")
-    if draft.lengths.max(initial=0) < 0.5 * len(genome):
-        raise AssertionError("assemble: no contig holds half of the genome")
-    d_id, p_id = ident["draft"][0], ident["polished"][0]
+    if missing:
+        raise AssertionError(f"assemble: K1 and K3 must launch at 128 and {POLISH_W}: "
+                             f"{dict(counts['by_width'])}")
+    d_id, p_id = res["identity_pct"]["draft"], res["identity_pct"]["polished"]
     ref = JAX_CPU_ASSEMBLY_REFERENCE
     ref_loss = max(ref["draft_identity"] - ref["polished_identity"], 0.0)
     if d_id is None or p_id is None or d_id - p_id > ref_loss + 0.5:
@@ -705,6 +765,172 @@ def check_assemble(launch_counts: dict, cfg_path: str, genome) -> None:
     if p_id < ref["polished_identity"] - 0.5:
         raise AssertionError(f"assemble: polished identity {p_id} < necat_tpu's "
                              f"{ref['polished_identity']} - 0.5")
+    return res
+
+
+def gap_case():
+    """tests/test_bridge.py:40's two-contig case: a 40 kb genome cut into
+    contigs [0, 18000) and [20000, 40000), five reads at 1 % error per kind
+    (three across the 2 kb gap) and one reverse-strand read across it.
+    Returns (contig sequences, raw reads)."""
+    from necat_tpu_torch.io import seqio, simulate
+    G = simulate.random_genome(40000, seed=51)
+    em = simulate.ErrorModel(sub=0.01, ins=0.01, dele=0.01)
+    rng = np.random.default_rng(9)
+    reads = [simulate.mutate(G[s:s + 12000], em, rng) for s in (13000, 14500, 15500)]
+    reads += [simulate.mutate(G[s:s + 8000], em, rng) for s in (2000, 30000)]
+    reads.append(seqio.revcomp(simulate.mutate(G[14000:25000], em, rng)))
+    return [G[:18000].copy(), G[20000:40000].copy()], reads
+
+
+def _by_width(counts) -> dict:
+    return {f"{k}@{w}": n for (k, w), n in sorted(counts["by_width"].items())}
+
+
+def check_bridge(dev, launch_counts: dict) -> None:
+    """(a) bridge_contigs of gap_case on "cpu" and on the card: identical
+    bridged contigs. (b) The bench genome's five pieces (bridge_bench_contigs)
+    bridged with the bench set's 339 raw reads on the card, held to
+    JAX_CPU_BRIDGE_REFERENCE."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.bridge import bridge
+    from necat_tpu_torch.io.readstore import ReadStore
+    from necat_tpu_torch.overlap import overlapper
+    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
+    contigs, reads = gap_case()
+    res = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        out = bridge.bridge_contigs(ReadStore.from_seqs(contigs, ["c0", "c1"]),
+                                    ReadStore.from_seqs(reads), device=d)
+        res[str(d)] = out
+        print(f"bridge gap case on {d}: {time.perf_counter() - t0:.1f} s, "
+              f"{out.n_reads} contigs of {out.lengths.tolist()}", flush=True)
+    a, b = res.values()
+    if a.names != b.names or not (np.array_equal(a.offsets, b.offsets)
+                                  and np.array_equal(a.bases, b.bases)):
+        raise AssertionError("bridge: cuda and cpu bridged contigs differ")
+    if a.n_reads != 1:
+        raise AssertionError(f"bridge: the gap case gave {a.n_reads} contigs, not 1")
+
+    genome, store, _ = gen_benchmark_reads(genome_size=200_000, coverage=20, seed=7)
+    seqs, names = bridge_bench_contigs(genome)
+    ctg = ReadStore.from_seqs(seqs, names)
+    overlapper.pairs_by_band.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    out = bridge.bridge_contigs(ctg, store, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch_counts["bridge"] = counts = _launches(bk)
+    ident, placed, total = contig_identity(out, genome)
+    ref = JAX_CPU_BRIDGE_REFERENCE
+    print("bridge " + json.dumps({
+        "wall_s": wall, "parts": dict(bridge.stats), "contigs_in": ctg.n_reads,
+        "lengths_in": ctg.lengths.tolist(), "contigs_out": out.n_reads,
+        "lengths_out": out.lengths.tolist(), "identity_pct": ident,
+        "placed_bases": [placed, total],
+        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        "launches": _by_width(counts),
+        "pairs_by_band": dict(sorted(overlapper.pairs_by_band.items())),
+        "jax_cpu_reference": ref}), flush=True)
+    missing = [k for k in ON_PATH if not counts["by_width"].get((k, 256))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"bridge: K1 and K3 must launch at 256 and K2 not: "
+                             f"{_by_width(counts)}")
+    if out.n_reads != ref["contigs"] or \
+            abs(out.total_bases - ref["total"]) > 0.005 * ref["total"]:
+        raise AssertionError(f"bridge: {out.n_reads} contigs of {out.total_bases} bases, "
+                             f"necat_tpu {ref['contigs']} of {ref['total']}")
+    if ident is None or ident < ref["identity"] - 0.5:
+        raise AssertionError(f"bridge: identity {ident} < necat_tpu's {ref['identity']} - 0.5")
+
+
+def check_bridge_cli(launch_counts: dict, cfg_path: str) -> None:
+    """`cli bridge --device cuda` on phase 8's project: correct, trim and
+    assemble are skipped by their manifests; bridge passes the one contig
+    through and polish runs again on the bridged file, which must give
+    phase 10's polished contigs."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.io.readstore import ReadStore
+    from necat_tpu_torch.pipeline import cli
+    prj = os.path.join(WORK, "project")
+    polished = os.path.join(prj, "polished_contigs.fasta")
+    assembled = ReadStore.from_fasta(polished)
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["bridge", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch_counts["bridge-cli"] = counts = _launches(bk)
+    if rc != 0:
+        raise AssertionError(f"bridge-cli: the command line exited {rc}")
+    stages = {}
+    for name, sub in (("bridge", "6-bridge_contigs"), ("polish", "final-polish")):
+        with open(os.path.join(prj, sub, f"{name}.done.json")) as f:
+            stages[name] = {k: v for k, v in json.load(f).items()
+                            if k not in ("input_fp", "params", "rc")}
+    print("bridge-cli " + json.dumps({"wall_s": wall, "stages": stages,
+                                      "launches": _by_width(counts)}), flush=True)
+    missing = [k for k in ON_PATH if not counts["by_width"].get((k, POLISH_W))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"bridge-cli: K1 and K3 must launch at {POLISH_W} and K2 not: "
+                             f"{_by_width(counts)}")
+    draft = ReadStore.from_fasta(os.path.join(prj, "4-fsa", "contigs.fasta"))
+    bridged = ReadStore.from_fasta(os.path.join(prj, "6-bridge_contigs",
+                                                "bridged_contigs.fasta"))
+    again = ReadStore.from_fasta(polished)
+    for what, x, y in (("bridged", bridged, draft), ("polished", again, assembled)):
+        if not (np.array_equal(x.offsets, y.offsets) and np.array_equal(x.bases, y.bases)):
+            raise AssertionError(f"bridge-cli: the {what} contigs differ from assemble's")
+
+
+def check_trim_accurate(dev, launch_counts: dict, cfg_path: str, genome,
+                        fast: dict) -> None:
+    """(a) trim_reads_accurate of the first 12 reads of check_slice's read
+    set (their overlaps from the CPU; cuts of 70 %, since these are raw
+    reads) on "cpu" and on the card: identical trimmed reads, kept ids and
+    ranges. (b) `cli assemble`
+    with TRIM_METHOD=accurate on phase 8's project: trim, assemble and
+    polish run again on the card; the draft's identity is held to phase
+    10's (fast trim)."""
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.overlap.overlapper import overlap_all_vs_all
+    from necat_tpu_torch.trim import accurate
+    rs = slice_store().subset(np.arange(12))
+    m4 = overlap_all_vs_all(rs, MapOptions(**SLICE_MAP), device="cpu")
+    res = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        res[str(d)] = accurate.trim_reads_accurate(
+            rs, m4, accurate.TrimAccurateOptions(min_ident=70.0), {"error": 0.3}, device=d)
+        print(f"trim-accurate on {d}: {time.perf_counter() - t0:.1f} s, "
+              f"{res[str(d)][0].n_reads} of {rs.n_reads} reads kept", flush=True)
+    (ta, ka, ra), (tb, kb, rb) = res.values()
+    if not (ta.names == tb.names and np.array_equal(ta.offsets, tb.offsets)
+            and np.array_equal(ta.bases, tb.bases) and np.array_equal(ka, kb)
+            and np.array_equal(ra, rb)):
+        raise AssertionError("trim-accurate: cuda and cpu trimmed reads differ")
+    if ta.n_reads < rs.n_reads // 2:
+        raise AssertionError(f"trim-accurate: {ta.n_reads} of {rs.n_reads} reads kept")
+
+    acc_cfg = os.path.join(WORK, "run_accurate.cfg")
+    with open(cfg_path) as src, open(acc_cfg, "w") as dst:
+        dst.write(src.read() + "\nTRIM_METHOD=accurate\n")
+    res = _run_assemble(launch_counts, "trim-accurate", acc_cfg, genome)
+    trim = res["stages"]["trim"]
+    by_width = launch_counts["trim-accurate"]["by_width"]
+    if not trim.get("cns_s") or not trim["pairs_by_band"]["cns"].get("128") or \
+            any(not by_width.get((k, 128)) for k in ON_PATH):
+        raise AssertionError(f"trim-accurate: the trim stage's consensus must run K1 and "
+                             f"K3 at 128: {trim}, {_by_width(launch_counts['trim-accurate'])}")
+    d_id, fast_id = res["identity_pct"]["draft"], fast["identity_pct"]["draft"]
+    if d_id is None or d_id < fast_id - 0.5:
+        raise AssertionError(f"trim-accurate: draft identity {d_id} < the fast trim's "
+                             f"{fast_id} - 0.5")
 
 
 def main() -> int:
@@ -717,7 +943,7 @@ def main() -> int:
     smi = probe()
     build()
     kernels = check_kernels(dev)
-    kernels.update(check_kernels(dev, W=POLISH_W, k3_words=(POLISH_WORDS,)))
+    kernels.update(check_kernels(dev, W=POLISH_W, k3_words=(1, POLISH_WORDS)))
     check_slice(dev)
     launch_counts = {}
     main_res = main_path(dev, launch_counts)
@@ -727,7 +953,10 @@ def main() -> int:
     check_rescue(dev, launch_counts)
     cfg_path, genome = check_correct(launch_counts, main_res)
     check_polish(dev, launch_counts)
-    check_assemble(launch_counts, cfg_path, genome)
+    fast = check_assemble(launch_counts, cfg_path, genome)
+    check_bridge(dev, launch_counts)
+    check_bridge_cli(launch_counts, cfg_path)
+    check_trim_accurate(dev, launch_counts, cfg_path, genome, fast)
     for (name, W, words), entry in kernels.items():
         by_path = {path: (c["k3_by_words"].get((W, words), 0) if words
                           else c["by_width"].get((name, W), 0))

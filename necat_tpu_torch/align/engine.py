@@ -133,9 +133,10 @@ class ExtendEngine:
         Subject windows around the anchor are bounded by 1.3x the query side
         plus a margin (oc_aligner.c:127-131), so the padded target size
         follows the query length. Each chunk holds PB = max(8, next power of
-        two >= its pairs) lanes, at most the tier's pairs_per_chunk: on the
-        card a chunk of any size costs no extra compile, so it is sized to
-        its work."""
+        two >= its pairs) lanes, at most the tier's pairs_per_chunk (beyond
+        the largest length tier: as many as EXTENSION_BYTES holds, at least
+        one, and no padding to 8): on the card a chunk of any size costs no
+        extra compile, so it is sized to its work."""
         qids = np.asarray(qids)
         if len(qids) == 0:
             return []
@@ -157,13 +158,20 @@ class ExtendEngine:
             i0 = order[cs]
             L = int(tier[i0])
             g = gkey[i0]
-            take = order[cs:cs + min(shapes.pairs_per_chunk(L, W), self.cap)]
+            per_chunk, min_lanes = min(shapes.pairs_per_chunk(L, W), self.cap), 8
+            if L > shapes.LENGTH_TIERS[-1]:
+                # contig-length pairs (the bridge's contig-to-contig
+                # extension): 8 lanes of L * W dirs bytes would not fit
+                # the card; lanes are independent, so results are unchanged
+                fit = max(1, shapes.EXTENSION_BYTES // (L * W))
+                per_chunk, min_lanes = 1 << (fit.bit_length() - 1), 1
+            take = order[cs:cs + per_chunk]
             keep = gkey[take] == g
             if not keep.all():                  # cut at the group boundary
                 take = take[:np.argmin(keep)]
             cs += len(take)
             n_real = len(take)
-            PB = max(8, 1 << (n_real - 1).bit_length())
+            PB = max(min_lanes, 1 << (n_real - 1).bit_length())
             desc = np.zeros((PB, len(DESC_COLS) + n_extra), np.int32)
             qi = qids[take]
             desc[:n_real, 0] = self.qdev.offsets[qi]

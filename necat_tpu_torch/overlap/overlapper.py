@@ -1,11 +1,12 @@
 """Read sets -> candidates -> extended M4 overlaps, on one device
 (counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates,
 extend_candidates with its long-indel rescue ladder, which the JAX
-package's callers all leave on at its default scales, and
-overlap_all_vs_all of one read volume)."""
+package's callers all leave on at its default scales, overlap_all_vs_all
+of one read volume and map_reads_to_reference)."""
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -50,12 +51,8 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
     parts = []
     for bs in range(0, len(order), query_batch_size):
         qidx = order[bs:bs + query_batch_size]
-        n_real = len(qidx)
-        if n_real < query_batch_size:  # the JAX package's fixed batch shape
-            qidx = np.concatenate([qidx, np.repeat(qidx[-1:], query_batch_size - n_real)])
         pad = shapes.length_tier(int(qstore.lengths[qidx].max()))
         lens = qstore.lengths[qidx].astype(np.int32)
-        lens[n_real:] = 0          # padding rows produce no k-mers, hence no hits
         if pairwise:
             limit = sstore.offsets[qidx].astype(np.int64)
         else:
@@ -74,6 +71,9 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
 # bytes of per-column buffers a slice of extension chunks may hold (about 20
 # bytes per pair and tier column): slices bound the device memory of a pass
 EXT_SLICE_BYTES = 2 << 30
+# pairs extend_candidates extended at each band width (the ladder's rungs
+# included), for the callers' reports; never cleared here
+pairs_by_band: Counter = Counter()
 
 
 def _extend_subset(cands: Candidates, engine: ExtendEngine, idxs: np.ndarray,
@@ -83,6 +83,7 @@ def _extend_subset(cands: Candidates, engine: ExtendEngine, idxs: np.ndarray,
     submitted a slice of at most 8192 pairs at a time; a slice's stats are
     read, and its buffers dropped, once the next slice is submitted."""
     slice_pairs = 8192
+    pairs_by_band[band_width] += len(idxs)
     if len(idxs):
         L_est = shapes.length_tier(
             min(int(cands.qsize[idxs].max()) * 14 // 10 + 600, 1 << 18))
@@ -167,3 +168,15 @@ def overlap_all_vs_all(store: ReadStore, opts: MapOptions, *, device) -> M4Recor
     and the stages refuse read sets that would need it."""
     cands = find_all_candidates(store, store, opts, pairwise=True, device=device)
     return extend_candidates(cands, store, store, device=device)
+
+
+def map_reads_to_reference(qstore: ReadStore, refstore: ReadStore, opts: MapOptions, *,
+                           device, min_align_size: int = 400, min_ident: float = 0.0,
+                           band_width: int = 128) -> M4Records:
+    """Reads mapped to a reference set (contigs) on `device`, the oc2rm
+    role: candidates of every read against refstore, then the banded
+    extension with its rescue ladder."""
+    cands = find_all_candidates(qstore, refstore, opts, pairwise=False, device=device)
+    return extend_candidates(cands, qstore, refstore, device=device,
+                             min_align_size=min_align_size, min_ident=min_ident,
+                             band_width=band_width)

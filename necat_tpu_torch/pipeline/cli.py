@@ -1,11 +1,12 @@
-"""Command line of the PyTorch port (necat.pl commands; bridge not yet).
+"""Command line of the PyTorch port (necat.pl commands).
 
   python -m necat_tpu_torch.pipeline.cli config   <cfg>                       # config template
   python -m necat_tpu_torch.pipeline.cli correct  <cfg> --device {cuda,cpu}   # correct raw reads
   python -m necat_tpu_torch.pipeline.cli assemble <cfg> --device {cuda,cpu}   # correct + trim + assemble [+ polish]
+  python -m necat_tpu_torch.pipeline.cli bridge   <cfg> --device {cuda,cpu}   # assemble + bridge [+ polish]
 
 `--device` has no default: "cuda" runs the CUDA kernels, "cpu" their plain
-PyTorch versions. `bridge` is not ported yet.
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -17,21 +18,15 @@ from necat_tpu_torch.pipeline import config as config_mod
 from necat_tpu_torch.pipeline.stages import Project
 from necat_tpu_torch.utils.logging import logger
 
-NOT_PORTED = ("bridge",)
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m necat_tpu_torch.pipeline.cli",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("command", choices=("config", "correct", "assemble") + NOT_PORTED)
+    ap.add_argument("command", choices=("config", "correct", "assemble", "bridge"))
     ap.add_argument("cfg")
     ap.add_argument("--device", choices=("cuda", "cpu"),
-                    help="required for correct and assemble: where the kernels run")
+                    help="required for correct, assemble and bridge: where the kernels run")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.command in NOT_PORTED:
-        print(f"{args.command}: not ported to necat_tpu_torch yet "
-              "(use python -m necat_tpu.pipeline.cli)", file=sys.stderr)
-        return 2
     if args.command == "config":
         config_mod.write_template(args.cfg)
         print(f"wrote config template to {args.cfg}")
@@ -43,7 +38,8 @@ def main(argv=None) -> int:
     if args.command == "correct":
         out = prj.run_correct(device=args.device)
     else:
-        out = prj.run_assemble(device=args.device)
+        run = prj.run_assemble if args.command == "assemble" else prj.run_bridge
+        out = run(device=args.device)
         if cfg.polish:
             out = prj.run_polish(out, "final", device=args.device)
     if cfg.get("CLEANUP", "0") in ("1", "true"):

@@ -1,5 +1,5 @@
 """Pipeline stages with resume (counterpart of necat_tpu/pipeline/stages.py:
-correct, trim, assemble and polish, on one device and one host).
+correct, trim, assemble, bridge and polish, on one device and one host).
 
 Each stage writes its outputs and a `<name>.done.json` manifest (input
 fingerprints and the parameters it ran with); a stage runs again only when
@@ -21,16 +21,20 @@ import numpy as np
 
 from necat_tpu_torch.assembly.contigs import AssembleOptions, assemble
 from necat_tpu_torch.assembly.overlap_filter import FilterOptions
+from necat_tpu_torch.bridge import bridge as bridge_mod
+from necat_tpu_torch.bridge.bridge import BridgeOptions, bridge_contigs
 from necat_tpu_torch.consensus import correct as correct_mod
 from necat_tpu_torch.consensus import fused
 from necat_tpu_torch.consensus.correct import correct_reads
 from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.io.readstore import ReadStore
+from necat_tpu_torch.overlap import overlapper
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.overlap.options import MapOptions
 from necat_tpu_torch.overlap.overlapper import find_all_candidates, overlap_all_vs_all
 from necat_tpu_torch.pipeline.config import Config
 from necat_tpu_torch.polish.polish import polish_contigs
+from necat_tpu_torch.trim.accurate import trim_reads_accurate
 from necat_tpu_torch.trim.lcr import TrimOptions, trim_reads
 from necat_tpu_torch.utils.logging import logger
 
@@ -217,29 +221,42 @@ class Project:
         return overlap_all_vs_all(reads, mopts, device=device)
 
     def run_trim(self, *, device) -> str:
-        """Trim stage (runTrimBases, TRIM_METHOD fast): all-vs-all overlaps of
-        the corrected reads on `device`, then each read clipped to its largest
-        cover range on the host. Returns the path of trimReads.fasta.gz; the
-        manifest records the seconds of both parts."""
+        """Trim stage (runTrimBases*): all-vs-all overlaps of the corrected
+        reads on `device`, then by TRIM_METHOD either each read clipped to its
+        largest cover range on the host (fast) or re-corrected over it on
+        `device` (accurate, accurate0: trim/accurate.py). Returns the path of
+        trimReads.fasta.gz; the manifest records the seconds of the overlaps
+        and of the trim (trim_s for fast, cns_s for the accurate
+        re-consensus), and the pairs extended at each band width by the
+        overlaps and by the re-consensus."""
         method = self.cfg.get("TRIM_METHOD", "fast").strip() or "fast"
-        if method != "fast":
-            raise NotImplementedError(f"necat_tpu_torch run_trim: TRIM_METHOD={method} "
-                                      "not ported")
         cns = self.run_correct(device=device)
         wd = self.path("2-trim_bases")
         out = self.path("trimReads.fasta.gz")
 
         def fn():
             reads = ReadStore.from_fasta(cns)
+            overlapper.pairs_by_band.clear()
+            fused.pairs_by_band.clear()
             t0 = time.perf_counter()
             m4 = self._overlaps(reads, "TRIM_OVLP_OPTIONS", "run_trim", device)
             t1 = time.perf_counter()
-            trimmed, _, _ = trim_reads(reads, m4, TrimOptions())
+            if method in ("accurate", "accurate0"):
+                # TRIM_METHOD selection (necat.pl:1196-1210): the accurate
+                # variants re-consensus each read over its cover range
+                trimmed, _, _ = trim_reads_accurate(reads, m4, device=device)
+                part = "cns_s"
+            else:
+                trimmed, _, _ = trim_reads(reads, m4, TrimOptions())
+                part = "trim_s"
             t2 = time.perf_counter()
             trimmed.to_fasta(out)
             logger.info("trimmed (%s): %d/%d reads kept", method, trimmed.n_reads,
                         reads.n_reads)
-            return {"overlap_s": t1 - t0, "trim_s": t2 - t1}
+            return {"overlap_s": t1 - t0, part: t2 - t1, "pairs_by_band": {
+                name: {str(w): n for w, n in sorted(c.items())}
+                for name, c in (("overlap", overlapper.pairs_by_band),
+                                ("cns", fused.pairs_by_band))}}
 
         _stage(wd, "trim", [cns], [out],
                {"method": method, **self._opt_params("TRIM_OVLP_OPTIONS")}, fn)
@@ -330,6 +347,48 @@ class Project:
 
         _stage(wd, "polish", [ctg_path], [out],
                self._opt_params("POLISH_OVLP_OPTIONS", "POLISH_CNS_OPTIONS"), fn)
+        return out
+
+    def run_bridge(self, *, device) -> str:
+        """Bridge stage (runAlignContigs + runBridgeContigs): the raw reads
+        (all of them) mapped to 4-fsa/contigs.fasta, and the contigs to each
+        other, on `device`; contigs joined on the host. Returns the path of
+        6-bridge_contigs/bridged_contigs.fasta. The manifest records the
+        seconds of the parts (map_s, c2c_s, graph_s, junction_s), the
+        contig graph's directed edges before and after the support cut
+        (links, links_kept), the contig counts in and out and the pairs
+        extended at each band width (mapping and contig-to-contig)."""
+        ctg_path = self.run_assemble(device=device)
+        wd = self.path("6-bridge_contigs")
+        out = os.path.join(wd, "bridged_contigs.fasta")
+
+        def fn():
+            contigs = ReadStore.from_fasta(ctg_path)
+            reads = load_raw_reads(self.cfg)
+            _check_supported(self.cfg, reads, "run_bridge")
+            bopts = BridgeOptions.from_string(self.cfg.get("FSA_CTG_BRIDGE_OPTIONS", ""))
+            readinfos = None
+            ri_path = self.path("4-fsa", "readinfos.json")
+            if os.path.exists(ri_path):
+                try:
+                    with open(ri_path) as f:
+                        readinfos = json.load(f)
+                except (OSError, ValueError):
+                    pass
+            overlapper.pairs_by_band.clear()
+            bridged = bridge_contigs(contigs, reads, opts=bopts, readinfos=readinfos,
+                                     device=device)
+            bridged.to_fasta(out)
+            logger.info("bridged: %d contigs in, %d out, N50 %d", contigs.n_reads,
+                        bridged.n_reads, bridged.n50()[0])
+            return {**{k: bridge_mod.stats[k] for k in ("map_s", "c2c_s", "graph_s", "junction_s",
+                                                        "c2c_pairs", "links", "links_kept")},
+                    "contigs_in": contigs.n_reads, "contigs_out": bridged.n_reads,
+                    "pairs_by_band": {str(w): n for w, n in
+                                      sorted(overlapper.pairs_by_band.items())}}
+
+        _stage(wd, "bridge", [ctg_path], [out],
+               self._opt_params("FSA_CTG_BRIDGE_OPTIONS"), fn)
         return out
 
     def cleanup(self) -> None:

@@ -1,0 +1,47 @@
+#!/usr/bin/env python
+"""necat_tpu's own bridge_contigs on the CPU: the reference for
+chip_smoke.py's JAX_CPU_BRIDGE_REFERENCE.
+
+    JAX_PLATFORMS=cpu python scripts/jax_bridge_reference.py
+
+The contigs are chip_smoke.bridge_bench_contigs of the bench genome
+(gen_benchmark_reads(200_000, 20, seed=7): five pieces in a shuffled id
+order, three gaps and one overlap) and the reads are the bench read set's
+339 raw reads, as in chip_smoke.py's phase 11b; bridge_contigs runs with its
+default options (on the CPU the JAX package takes its adaptive band).
+Prints one JSON line: the wall, the bridged contigs' count and lengths, and
+their identity to the true genome as chip_smoke.contig_identity measures
+it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main() -> int:
+    import chip_smoke
+    from necat_tpu.bridge.bridge import bridge_contigs
+    from necat_tpu.io.readstore import ReadStore
+    from necat_tpu.utils.benchdata import gen_benchmark_reads
+    genome, store, _ = gen_benchmark_reads(genome_size=200_000, coverage=20, seed=7)
+    seqs, names = chip_smoke.bridge_bench_contigs(genome)
+    t0 = time.perf_counter()
+    out = bridge_contigs(ReadStore.from_seqs(seqs, names), store)
+    wall = time.perf_counter() - t0
+    ident, placed, total = chip_smoke.contig_identity(out, genome)
+    print(json.dumps({"wall_s": wall, "contigs": out.n_reads,
+                      "lengths": [int(x) for x in out.lengths],
+                      "total": int(out.total_bases), "identity": ident,
+                      "placed_bases": [placed, total]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

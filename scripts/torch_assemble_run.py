@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """One `assemble` run of necat_tpu_torch on one NVIDIA GPU, at a scale of
-choice, through the command line (correct -> trim -> assemble -> polish).
+choice, through the pipeline's stages (correct -> trim -> assemble ->
+polish), then the bridge stage on the assembled contigs.
 
     python scripts/torch_assemble_run.py [--genome-size 4600000] [--coverage 40]
-        [--seed 7] [--work DIR] [--out FILE]
+        [--seed 7] [--work DIR] [--out FILE] [--no-polish]
 
 The reads are gen_benchmark_reads(genome_size, coverage, seed) (the E. coli
 stand-in of bench.py at the defaults), the config is the template's with
@@ -11,7 +12,13 @@ POLISH_CONTIGS=true. After each stage the stage's manifest
 (<stage>.done.json: wall and parts) is printed as one JSON line, so that a
 run cut by a time limit still shows how far it got; the last line adds the
 contigs' count, bases and N50, peak device memory and the launches per
-(kernel, W). Nothing is compared: this is an exploratory run.
+(kernel, W). The bridge stage (Project.run_bridge: all raw reads mapped
+to 4-fsa/contigs.fasta, the contigs to each other, contigs joined; its
+output is not polished) follows, on a line of its own: the stage's manifest
+(seconds of map, c2c, graph and junction, links, pairs per band), contigs
+and N50 in and out, its peak device memory and its launches per (kernel,
+W). --no-polish leaves the polish stage out. Nothing is compared: this is
+an exploratory run.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 STAGES = (("correct", "1-consensus"), ("trim", "2-trim_bases"), ("assemble", "4-fsa"),
-          ("polish", "final-polish"))
+          ("polish", "final-polish"), ("bridge", "6-bridge_contigs"))
 
 
 def main() -> int:
@@ -38,6 +45,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--work", default="build/assemble_run")
     ap.add_argument("--out", help="also append the JSON lines to this file")
+    ap.add_argument("--no-polish", action="store_true", help="leave the polish stage out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_assemble_run: CUDA is not available", file=sys.stderr)
@@ -93,14 +101,33 @@ def main() -> int:
     manifest(*STAGES[1])
     ctg = prj.run_assemble(device="cuda")
     manifest(*STAGES[2])
-    pol = prj.run_polish(ctg, "final", device="cuda")
-    manifest(*STAGES[3])
+    pol = None
+    if not args.no_polish:
+        pol = prj.run_polish(ctg, "final", device="cuda")
+        manifest(*STAGES[3])
     torch.cuda.synchronize()
-    draft, polished = ReadStore.from_fasta(ctg), ReadStore.from_fasta(pol)
+    draft = ReadStore.from_fasta(ctg)
+    polished = ReadStore.from_fasta(pol) if pol else None
     emit("assemble_run", {
         "wall_s": time.perf_counter() - t0,
         "contigs": draft.n_reads, "contig_bases": int(draft.total_bases),
-        "contig_n50": draft.n50()[0], "polished_bases": int(polished.total_bases),
+        "contig_n50": draft.n50()[0],
+        "polished_bases": int(polished.total_bases) if polished else None,
+        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        "launches": {f"{k}@{w}": n for (k, w), n in sorted(bk.launches_by_width.items())},
+        "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in
+                        sorted(bk.k3_launches_by_words.items())}})
+    bk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    bridged = ReadStore.from_fasta(prj.run_bridge(device="cuda"))
+    torch.cuda.synchronize()
+    manifest(*STAGES[4])
+    emit("bridge_run", {
+        "wall_s": time.perf_counter() - t1, "contigs_in": draft.n_reads,
+        "n50_in": draft.n50()[0], "contigs_out": bridged.n_reads,
+        "n50_out": bridged.n50()[0], "bases_out": int(bridged.total_bases),
+        "lengths_out": sorted(int(x) for x in bridged.lengths)[::-1][:20],
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
         "launches": {f"{k}@{w}": n for (k, w), n in sorted(bk.launches_by_width.items())},
         "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in

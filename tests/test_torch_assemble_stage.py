@@ -83,7 +83,7 @@ def test_run_assemble_matches_jax(jax_static_band, monkeypatch, tmp_path):
         "4-fsa/readinfos.txt", "polished_contigs.fasta"]
 
 
-@pytest.mark.parametrize("extra", ["TRIM_METHOD=accurate\n", "VOL_SIZE=100000\n"])
+@pytest.mark.parametrize("extra", ["SMALL_MEMORY=1\n", "VOL_SIZE=100000\n"])
 def test_run_assemble_refuses_unported_modes(tmp_path, extra):
     cfg = _write_asm_config(tmp_path, "refused", extra)
     with pytest.raises(NotImplementedError):
