@@ -75,10 +75,29 @@ Phases, each failing the run on error:
              consensus must run K1 and K3 at 128, a contig must hold >= 50 %
              of the genome and the draft's identity must be no more than
              0.5 points below phase 10's.
-Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
+ 14. small-memory correct_reads of phase 5's reads and candidates with
+             small_memory=True (each supergroup uploads only the reads it
+             touches): records identical to phase 5's; correction seconds
+             and peak device memory beside a run without the mode;
+ 15. volumes (a) candidates_by_volumes of phase 5's reads in 1.5 Mb volumes
+             (three, one k-mer index each, timed) equal phase 5's untiled
+             candidates field for field; (b) `cli assemble` with
+             VOL_SIZE=1500000 and POLISH_CONTIGS=false in a fresh project
+             from phase 8's reads and config writes phase 10's cns_final,
+             trimReads and contigs (content); K1 and K3 must launch at 128
+             and K2 never;
+ 16. stripes two processes of `cli assemble --device cuda` share the card,
+             joined through a coordinator on 127.0.0.1 (gloo), in a fresh
+             project: correct and polish striped, trim and assemble on
+             process 0; cns_final and polished_contigs.fasta must equal
+             phase 10's, and each process's manifest report must show pairs
+             extended (K1 and K3 launched). A failed process fails the run.
+Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1), so that none hides a
+failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
-(main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate)
-and read after it. It prints one JSON line of kernel results, the card line,
+(main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
+small-memory, volumes) and read after it; phase 16's launches run in other
+processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
 """
@@ -132,6 +151,10 @@ BRIDGE_PIECES = ((0, 45_000, False), (47_000, 90_000, False), (87_000, 130_000, 
                  (131_500, 170_000, False), (173_000, 200_000, False))
 BRIDGE_ORDER = (3, 0, 4, 2, 1)
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+PHASE10 = os.path.join(WORK, "phase10")     # copies of phase 10's outputs
+PHASE10_FILES = ("1-consensus/cns_final.fasta.gz", "trimReads.fasta.gz", "4-fsa/contigs.fasta",
+                 "polished_contigs.fasta")
+VOL_SIZE = 1_500_000                 # phase 15: three volumes of the 4.02 Mb bench set
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
@@ -387,10 +410,13 @@ def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
     return round(float(np.mean(idents)), 2) if idents else None
 
 
-def main_path(dev, launch_counts: dict) -> dict:
+def main_path(dev, launch_counts: dict):
+    """Returns main's summary and (store, candidates, role-expanded
+    candidates, records) for the phases that rerun its inputs."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import correct_reads
     from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.overlap import overlapper
     from necat_tpu_torch.overlap.candidates import Candidates
     from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.overlap.overlapper import find_all_candidates
@@ -400,6 +426,7 @@ def main_path(dev, launch_counts: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bk.reset_launches()
+    overlapper.index_build_s.clear()
     t0 = time.perf_counter()
     cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
     call = Candidates.concat([cands, cands.swap_roles()])
@@ -418,6 +445,7 @@ def main_path(dev, launch_counts: dict) -> dict:
         "reads": store.n_reads, "bases": int(store.total_bases),
         "candidates": len(cands), "records": len(recs), "corrected_reads": ncorr,
         "identity_pct": ident, "candidates_s": round(t1 - t0, 3),
+        "index_build_s": round(sum(overlapper.index_build_s), 3),
         "correct_s": round(t2 - t1, 3), "wall_s": round(t2 - t0, 3),
         "corrected_reads_per_s": round(ncorr / (t2 - t0), 3),
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
@@ -432,7 +460,7 @@ def main_path(dev, launch_counts: dict) -> dict:
         raise AssertionError(f"corrected {ncorr} < 97 % of {ref['corrected_reads']}")
     if ident is None or ident < ref["identity"] - 0.5:
         raise AssertionError(f"identity {ident} < {ref['identity']} - 0.5")
-    return {"corrected_reads": ncorr, "identity": ident}
+    return {"corrected_reads": ncorr, "identity": ident}, (store, cands, call, recs)
 
 
 def planted_pairs(seed: int = 11, tlen: int = 6000, inserts=RESCUE_INSERTS):
@@ -697,6 +725,23 @@ def bridge_bench_contigs(genome):
     return [seqs[i] for i in BRIDGE_ORDER], [f"piece{i}" for i in BRIDGE_ORDER]
 
 
+STAGE_DIRS = {"correct": "1-consensus", "trim": "2-trim_bases", "assemble": "4-fsa",
+              "bridge": "6-bridge_contigs", "polish": "final-polish"}
+
+
+def _stage_reports(prj: str, names=("correct", "trim", "assemble", "polish")) -> dict:
+    """The manifests of these stages of a project (those that exist),
+    without their fingerprints and parameters."""
+    out = {}
+    for name in names:
+        path = os.path.join(prj, STAGE_DIRS[name], f"{name}.done.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out[name] = {k: v for k, v in json.load(f).items()
+                             if k not in ("input_fp", "params", "rc")}
+    return out
+
+
 def _run_assemble(launch_counts: dict, path: str, cfg_path: str, genome) -> dict:
     """`cli assemble <cfg_path> --device cuda` on phase 8's project, the
     launch counts set to 0 before it and read after it into
@@ -716,12 +761,7 @@ def _run_assemble(launch_counts: dict, path: str, cfg_path: str, genome) -> dict
     launch_counts[path] = _launches(bk)
     if rc != 0:
         raise AssertionError(f"{path}: the command line exited {rc}")
-    stages = {}
-    for name, sub in (("trim", "2-trim_bases"), ("assemble", "4-fsa"),
-                      ("polish", "final-polish")):
-        with open(os.path.join(prj, sub, f"{name}.done.json")) as f:
-            stages[name] = {k: v for k, v in json.load(f).items()
-                            if k not in ("input_fp", "params", "rc")}
+    stages = _stage_reports(prj, ("trim", "assemble", "polish"))
     draft = ReadStore.from_fasta(os.path.join(prj, "4-fsa", "contigs.fasta"))
     polished = ReadStore.from_fasta(os.path.join(prj, "polished_contigs.fasta"))
     t1 = time.perf_counter()
@@ -748,8 +788,12 @@ def _run_assemble(launch_counts: dict, path: str, cfg_path: str, genome) -> dict
 
 def check_assemble(launch_counts: dict, cfg_path: str, genome) -> dict:
     """The CLI's assemble command on phase 8's project: correct is skipped
-    by its manifest; trim, assemble and polish run on "cuda"."""
+    by its manifest; trim, assemble and polish run on "cuda". Its files are
+    kept in PHASE10 for phases 15 and 16 (phase 13 overwrites them)."""
     res = _run_assemble(launch_counts, "assemble", cfg_path, genome)
+    os.makedirs(PHASE10, exist_ok=True)
+    for f in PHASE10_FILES:
+        shutil.copy(os.path.join(WORK, "project", f), PHASE10)
     counts = launch_counts["assemble"]
     missing = [(k, w) for k in ON_PATH for w in (128, POLISH_W)
                if not counts["by_width"].get((k, w))]
@@ -868,11 +912,7 @@ def check_bridge_cli(launch_counts: dict, cfg_path: str) -> None:
     launch_counts["bridge-cli"] = counts = _launches(bk)
     if rc != 0:
         raise AssertionError(f"bridge-cli: the command line exited {rc}")
-    stages = {}
-    for name, sub in (("bridge", "6-bridge_contigs"), ("polish", "final-polish")):
-        with open(os.path.join(prj, sub, f"{name}.done.json")) as f:
-            stages[name] = {k: v for k, v in json.load(f).items()
-                            if k not in ("input_fp", "params", "rc")}
+    stages = _stage_reports(prj, ("bridge", "polish"))
     print("bridge-cli " + json.dumps({"wall_s": wall, "stages": stages,
                                       "launches": _by_width(counts)}), flush=True)
     missing = [k for k in ON_PATH if not counts["by_width"].get((k, POLISH_W))]
@@ -933,12 +973,200 @@ def check_trim_accurate(dev, launch_counts: dict, cfg_path: str, genome,
                              f"{fast_id} - 0.5")
 
 
+def _content(path: str) -> bytes:
+    """A file's bytes, decompressed if it is gzipped."""
+    import gzip
+    with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
+        return f.read()
+
+
+def _same_as_phase10(prj: str, files, what: str) -> None:
+    for f in files:
+        if _content(os.path.join(prj, f)) != _content(os.path.join(PHASE10,
+                                                                   os.path.basename(f))):
+            raise AssertionError(f"{what}: {f} differs from phase 10's")
+
+
+def _project_config(cfg_path: str, name: str, extra: str) -> tuple:
+    """Phase 8's config with a fresh project directory WORK/<name> and
+    `extra` lines appended; returns (its path, the project's)."""
+    prj = os.path.join(WORK, name)
+    shutil.rmtree(prj, ignore_errors=True)
+    with open(cfg_path) as f:
+        text = f.read().replace(f"PROJECT={os.path.join(WORK, 'project')}", f"PROJECT={prj}")
+    path = os.path.join(WORK, f"{name}.cfg")
+    with open(path, "w") as f:
+        f.write(text + "\n" + extra)
+    return path, prj
+
+
+def check_small_memory(dev, launch_counts: dict, main_inputs, smi: str) -> None:
+    """correct_reads of main's read set and candidates with small_memory=True
+    (each supergroup uploads its own store): records identical to main's.
+    The mode's correction time and peak memory beside a run without it."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus import correct as correct_mod
+    from necat_tpu_torch.consensus.options import CnsOptions
+    store, _, call, want = main_inputs
+    res = {}
+    for mode in (False, True):
+        stores = []
+        make = correct_mod.DeviceReadStore
+        correct_mod.DeviceReadStore = lambda st, d: stores.append(st.total_bases) or make(st, d)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if mode:
+                bk.reset_launches()
+            t0 = time.perf_counter()
+            recs = correct_mod.correct_reads(store, call, CnsOptions(small_memory=mode),
+                                             device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            correct_mod.DeviceReadStore = make
+        if mode:
+            launch_counts["small-memory"] = _launches(bk)
+        _same_records(want, recs)
+        res["on" if mode else "off"] = {
+            "correction_s": wall,
+            "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "device_stores": len(stores), "store_bases": stores}
+    counts = launch_counts["small-memory"]
+    print("small-memory " + json.dumps({**res, "launches": _by_width(counts), "card": smi}),
+          flush=True)
+    if res["off"]["device_stores"] != 1 or res["on"]["device_stores"] < 2:
+        raise AssertionError("small-memory: each supergroup must upload a store of its own")
+    missing = [k for k in ON_PATH if not counts["by_width"].get((k, 128))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"small-memory: K1 and K3 must launch at 128 and K2 not: "
+                             f"{_by_width(counts)}")
+    print("small-memory: records identical to main's", flush=True)
+
+
+def check_volumes(dev, launch_counts: dict, main_inputs, cfg_path: str, smi: str) -> None:
+    """(a) candidates_by_volumes of main's read set in VOL_SIZE-base volumes
+    equal main's untiled candidates, field for field and in order. (b) `cli
+    assemble` with VOL_SIZE and POLISH_CONTIGS=false in a fresh project from
+    phase 8's reads and config writes phase 10's cns_final, trimmed reads and
+    contigs. Launches are counted over (a) and (b)."""
+    import dataclasses as dc
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.overlap import overlapper
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.pipeline import cli
+    store, cands, _, _ = main_inputs
+    vols = store.volumes(VOL_SIZE)
+    bk.reset_launches()
+    overlapper.index_build_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled = overlapper.candidates_by_volumes(store, MapOptions(), VOL_SIZE, device=dev)
+    torch.cuda.synchronize()
+    cand_s = time.perf_counter() - t0
+    index_s = list(overlapper.index_build_s)
+    for f in dc.fields(cands):
+        if not np.array_equal(getattr(cands, f.name), getattr(tiled, f.name)):
+            raise AssertionError(f"volumes: candidate field {f.name} differs from main's")
+    path, prj = _project_config(cfg_path, "project_vol",
+                                f"VOL_SIZE={VOL_SIZE}\nPOLISH_CONTIGS=false\n")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    rc = cli.main(["assemble", path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launch_counts["volumes"] = counts = _launches(bk)
+    if rc != 0:
+        raise AssertionError(f"volumes: the command line exited {rc}")
+    print("volumes " + json.dumps({
+        "volumes": vols, "candidates": len(tiled), "candidates_s": cand_s,
+        "index_build_s": index_s, "assemble_wall_s": wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "stages": _stage_reports(prj), "launches": _by_width(counts), "card": smi}),
+        flush=True)
+    if len(vols) < 3 or len(index_s) != len(vols):
+        raise AssertionError(f"volumes: {len(vols)} volumes, {len(index_s)} index builds")
+    missing = [k for k in ON_PATH if not counts["by_width"].get((k, 128))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"volumes: K1 and K3 must launch at 128 and K2 not: "
+                             f"{_by_width(counts)}")
+    _same_as_phase10(prj, PHASE10_FILES[:3], "volumes")
+    print("volumes: candidates equal main's; cns_final, trimmed reads and contigs equal "
+          "phase 10's", flush=True)
+
+
+def check_stripes(cfg_path: str, smi: str, timeout: int = 600) -> None:
+    """Two processes of `cli assemble --device cuda` on the one card, joined
+    through a coordinator on 127.0.0.1 (gloo), in a fresh project from phase
+    8's reads and config: correct and polish striped, trim and assemble on
+    process 0. cns_final and the polished contigs must equal phase 10's; the
+    processes' pairs per band come from the manifests."""
+    import socket
+    path, prj = _project_config(cfg_path, "project_mp", "")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the two processes split the host's cores between their torch threads
+    env = {**os.environ, "PYTHONPATH": root, "NECAT_TPU_COORDINATOR": f"127.0.0.1:{port}",
+           "NECAT_TPU_NUM_PROCS": "2",
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+    logs = [os.path.join(WORK, f"stripes.process{p}.log") for p in range(2)]
+    # this process's allocator still holds the blocks of the earlier phases
+    # (~78 GiB): hand them back, or the two processes find the card full
+    torch.cuda.empty_cache()
+    reserved_gib = torch.cuda.memory_reserved() / 2**30
+    t0 = time.perf_counter()
+    procs = []
+    for p in range(2):
+        with open(logs[p], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "necat_tpu_torch.pipeline.cli", "assemble", path,
+                 "--device", "cuda"], cwd=root, env={**env, "NECAT_TPU_PROC_ID": str(p)},
+                stdout=log, stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break                      # one failed: the other is stopped below
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"stripes: the processes ran past {timeout} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        for i, (p, log) in enumerate(zip(procs, logs)):
+            with open(log) as f:
+                print(f"stripes: process {i} exited {p.returncode}; log tail:\n"
+                      + f.read()[-3000:], flush=True)
+        raise AssertionError(f"stripes: exit codes {[p.returncode for p in procs]}")
+    stages = _stage_reports(prj)
+    by_proc = {
+        "correct": [[it["pairs_by_band"] for it in r["iterations"]]
+                    for r in stages["correct"]["by_process"]],
+        "trim": stages["trim"]["pairs_by_band"],
+        "polish": [r["pairs_by_band"] for r in stages["polish"]["by_process"]]}
+    print("stripes " + json.dumps({"wall_s": wall, "parent_reserved_gib": reserved_gib,
+                                   "stages": stages, "pairs_by_band": by_proc, "card": smi}),
+          flush=True)
+    if not all(its[0].get("128") for its in by_proc["correct"]) or \
+            not by_proc["trim"]["overlap"].get("128") or not by_proc["polish"][0].get("256"):
+        raise AssertionError(f"stripes: each process's correct, process 0's trim at 128 and "
+                             f"polish at {POLISH_W} must extend pairs: {by_proc}")
+    _same_as_phase10(prj, (PHASE10_FILES[0], PHASE10_FILES[3]), "stripes")
+    print("stripes: cns_final and polished contigs equal phase 10's", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    os.environ["NECAT_TPU_MAX_STAGE_ERROR"] = "1"     # no stage retry may hide a failure
     t0 = time.perf_counter()
     smi = probe()
     build()
@@ -946,7 +1174,7 @@ def main() -> int:
     kernels.update(check_kernels(dev, W=POLISH_W, k3_words=(1, POLISH_WORDS)))
     check_slice(dev)
     launch_counts = {}
-    main_res = main_path(dev, launch_counts)
+    main_res, main_inputs = main_path(dev, launch_counts)
     for W in RUNGS:
         kernels.update(check_kernels(
             dev, W=W, k3_words=(1, POLISH_WORDS) if W in WORDS3_RUNGS else (1,)))
@@ -957,6 +1185,9 @@ def main() -> int:
     check_bridge(dev, launch_counts)
     check_bridge_cli(launch_counts, cfg_path)
     check_trim_accurate(dev, launch_counts, cfg_path, genome, fast)
+    check_small_memory(dev, launch_counts, main_inputs, smi)
+    check_volumes(dev, launch_counts, main_inputs, cfg_path, smi)
+    check_stripes(cfg_path, smi)
     for (name, W, words), entry in kernels.items():
         by_path = {path: (c["k3_by_words"].get((W, words), 0) if words
                           else c["by_width"].get((name, W), 0))

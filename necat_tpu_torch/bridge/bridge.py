@@ -359,7 +359,7 @@ class ContigGraph:
 
 def bridge_contigs(contigs: ReadStore, reads: ReadStore, map_opts: MapOptions | None = None,
                    opts: BridgeOptions = BridgeOptions(), m4: M4Records | None = None,
-                   readinfos: dict | None = None, *, device) -> ReadStore:
+                   readinfos: dict | None = None, *, device="cuda") -> ReadStore:
     """Join contigs via read bridges; returns the bridged contig store. The
     reads are mapped to the contigs (band 256 and its rescue ladder), and
     the contigs to each other, on `device`.

@@ -87,14 +87,13 @@ def group_by_template(cands: Candidates, max_examined: int) -> Dict[int, np.ndar
 
 
 def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
-    """The port runs the default configuration on one device only; refuse the
-    others rather than run something else."""
+    """The port runs the fused mode on one device only; refuse the others
+    rather than run something else."""
     if not isinstance(opts, CnsOptions) or not isinstance(store, ReadStore):
         raise TypeError("correct_reads takes necat_tpu_torch's CnsOptions and ReadStore, "
                         f"not {type(opts).__module__}/{type(store).__module__}")
     unsupported = {
         "more than one device": isinstance(device, (list, tuple)),
-        "small_memory": opts.small_memory or store.total_bases >= (1 << 31),
         "fused=False": opts.fused is False,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -104,14 +103,25 @@ def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
 
 
 def correct_reads(store: ReadStore, cands: Candidates,
-                  opts: CnsOptions = CnsOptions(), *, device,
+                  opts: CnsOptions = CnsOptions(), *, device="cuda",
                   min_cov_for_template: int | None = None,
-                  emit_uncorrected: bool = True,
+                  emit_uncorrected: bool = True, template_ids=None,
                   template_cuts: dict | None = None) -> List[CnsRecord]:
     """Correct all templates that have candidates, on one `device`. `cands`
     must be role-expanded (each overlap present for both reads as templates).
     Records come in the order of necat_tpu's correct_reads: uncorrected
     passthrough first, then templates by descending length.
+
+    template_ids restricts the templates, and the uncorrected passthrough,
+    to those read ids: a process's stripe in a multi-process run (the
+    reference's `-mn node_id num_nodes`, src/consensus/main.c:71-73), so
+    that the stripes' records together are the whole run's.
+
+    SMALL_MEMORY (opts.small_memory, or a store at or past
+    shapes.DEVICE_STORE_MAX_BASES; oc2cns -s, read_id_pool.h:29-63): each
+    supergroup uploads only the reads it touches, its templates and their
+    queries, and extends on local ids. Supergroups run one at a time, so at
+    most one supergroup's device arrays are alive.
 
     template_cuts (template id -> positions; wide-delta mode only) splits
     corrected pieces at those positions: the polish stage cuts its windows'
@@ -120,25 +130,35 @@ def correct_reads(store: ReadStore, cands: Candidates,
     dev = resolve_device(device)
     groups = group_by_template(cands, opts.max_examined)
     min_need = opts.min_cov if min_cov_for_template is None else min_cov_for_template
-    tids_all = np.array([t for t in sorted(groups) if len(groups[t]) >= min_need],
-                        dtype=np.int64)
+    stripe = None if template_ids is None else {int(t) for t in template_ids}
+    tids_all = np.array([t for t in sorted(groups) if len(groups[t]) >= min_need
+                         and (stripe is None or t in stripe)], dtype=np.int64)
     records: List[CnsRecord] = []
     if emit_uncorrected:
         have = set(tids_all.tolist())
         for r in range(store.n_reads):
-            if r not in have:
+            if r not in have and (stripe is None or r in stripe):
                 records.append(CnsRecord(tid=r, left=0, right=int(store.lengths[r]),
                                          org_size=int(store.lengths[r]),
                                          seq=store.get(r), corrected=False))
     if not len(tids_all):
         return records
     tids_sorted = tids_all[np.argsort(-store.lengths[tids_all], kind="stable")]
-    qdev = DeviceReadStore(store, dev)
-    engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
+    small_memory = (opts.small_memory
+                    or store.total_bases >= shapes.DEVICE_STORE_MAX_BASES)
+    engine = id_map = None
+    if not small_memory:
+        qdev = DeviceReadStore(store, dev)
+        engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
     SG = opts.templates_per_batch * (opts.buckets_per_supergroup or 1)
     for s in range(0, len(tids_sorted), SG):
-        buckets, tpls = _run_supergroup(store, engine, cands, groups,
-                                        tids_sorted[s:s + SG], opts)
+        sg_ids = tids_sorted[s:s + SG]
+        if small_memory:
+            id_map = np.unique(np.concatenate(
+                [sg_ids] + [cands.qid[groups[int(t)]] for t in sg_ids]).astype(np.int64))
+            qdev = DeviceReadStore(store.subset(id_map), dev)
+            engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
+        buckets, tpls = _run_supergroup(store, engine, cands, groups, sg_ids, opts, id_map)
         records.extend(_compact_supergroup(store, buckets, tpls, opts,
                                            template_cuts or {}))
     return records
@@ -329,12 +349,15 @@ def _defer_ladder(run, stats, cands, p_ci, opts: CnsOptions) -> None:
         fused.collect_fused(run(sel_w, W=int(Wx)), stats, sel=sel_w)
 
 
-def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState) -> None:
+def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
+               id_map) -> None:
     """Waves until no template has pending candidates: round 0 estimates the
     identity cutoffs (unless fixed) and scatters from the ident pass's
     retained buffers; later rounds extend, accept and scatter in one step.
     Without rescue the only host syncs are the per-chunk stats that feed the
-    coverage mirror; the rescue ladder reads each rung's stats."""
+    coverage mirror; the rescue ladder reads each rung's stats. id_map (the
+    sorted global ids of a SMALL_MEMORY supergroup's store, else None) maps
+    the ids the device store is read by."""
     TB = opts.templates_per_batch
     dev = engine.device
     estimating = not opts.use_fixed_ident_cutoff
@@ -348,6 +371,8 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState) ->
     round_id = 0 if estimating else 1        # consensus_one_read.c:273-278
     max_rounds = -(-opts.max_examined // opts.wave_size) + 1
     offsets = engine.qdev.offsets
+    local = (lambda ids: ids) if id_map is None else (
+        lambda ids: np.searchsorted(id_map, ids))
     while round_id <= max_rounds:
         wave = (opts.n_ident + 10) if round_id == 0 else opts.wave_size
         p_tpl, p_ci, slots = _select_wave(st, cands, round_id, wave, opts.max_cov)
@@ -356,9 +381,9 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState) ->
                 round_id += 1
                 continue
             break
-        base = dict(qids=cands.qid[p_ci], qdir=cands.qdir[p_ci].astype(np.int32),
+        base = dict(qids=local(cands.qid[p_ci]), qdir=cands.qdir[p_ci].astype(np.int32),
                     qsize=cands.qsize[p_ci].astype(np.int64),
-                    tg_base=offsets[st.tpl_tid[p_tpl]],
+                    tg_base=offsets[local(st.tpl_tid[p_tpl])],
                     tsize_full=st.tpl_n[p_tpl],
                     aq=cands.qbeg[p_ci].astype(np.int64),
                     at_abs=cands.sbeg[p_ci].astype(np.int64),
@@ -418,7 +443,7 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState) ->
         round_id += 1
 
 
-def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions):
+def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions, id_map):
     """Waves of one supergroup, then the consensus call of each bucket;
     returns the buckets, their consensus downloaded, and the templates."""
     TB = opts.templates_per_batch
@@ -432,7 +457,7 @@ def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions):
             tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
                              groups[tid]))
     t0 = time.perf_counter()
-    _run_waves(engine, cands, buckets, tpls, opts, _SelState(tpls))
+    _run_waves(engine, cands, buckets, tpls, opts, _SelState(tpls), id_map)
     t1 = time.perf_counter()
     for b in buckets:
         w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from necat_tpu_torch.io.readstore import ReadStore, pack_2bit
+from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -23,8 +24,9 @@ class DeviceReadStore:
         if not isinstance(store, ReadStore):
             raise TypeError(f"DeviceReadStore takes necat_tpu_torch's ReadStore, not "
                             f"{type(store).__module__}.{type(store).__name__}")
-        if store.total_bases >= (1 << 31):
-            raise ValueError("DeviceReadStore requires < 2^31 bases")
+        if store.total_bases >= shapes.DEVICE_STORE_MAX_BASES:
+            raise ValueError(f"DeviceReadStore requires < {shapes.DEVICE_STORE_MAX_BASES} "
+                             "bases (shapes.DEVICE_STORE_MAX_BASES)")
         self.device = resolve_device(device)
         words = pack_2bit(store.bases).view(np.int32)
         self.words = torch.from_numpy(words.copy()).to(self.device)

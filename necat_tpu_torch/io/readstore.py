@@ -1,5 +1,5 @@
 """ReadStore: a flat store of 2-bit-encodable reads (the port's copy of
-necat_tpu/io/readstore.py, the part the port uses).
+necat_tpu/io/readstore.py, the part the port uses, subject volumes included).
 
 Sequences are one concatenated uint8 code array (values 0..3) plus int64
 offsets (the role of the reference's PackedDB, src/common/packed_db.{h,c});
@@ -128,6 +128,24 @@ class ReadStore:
         n_keep = int(np.searchsorted(csum, target)) + 1
         n_keep = min(n_keep, self.n_reads)
         return np.sort(order[:n_keep])
+
+    def volumes(self, vol_size: int = 2_000_000_000) -> List[Tuple[int, int]]:
+        """Split into shards of <= vol_size bases at read boundaries: a list
+        of (read_start, read_end). A read longer than vol_size gets a volume
+        of its own (oc2mkdb's volumes, src/makedb/main.c:8-46, kVolSize)."""
+        out: List[Tuple[int, int]] = []
+        start = 0
+        acc = 0
+        lens = self.lengths
+        for i in range(self.n_reads):
+            if acc + int(lens[i]) > vol_size and i > start:
+                out.append((start, i))
+                start = i
+                acc = 0
+            acc += int(lens[i])
+        if start < self.n_reads:
+            out.append((start, self.n_reads))
+        return out
 
     def padded_batch(self, idx: np.ndarray, pad_to: int | None = None,
                      multiple: int = 128, rc: bool = False) -> Tuple[np.ndarray, np.ndarray]:

@@ -159,8 +159,9 @@ def candidates_forward(index: KmerIndex, sub_offsets, batch, lens, soff_limit,
 
 
 def stats_to_candidates(st: np.ndarray, qids, lens, qdir, sub_sizes,
-                        sub_vol_read_start: int, opts: MapOptions) -> Candidates:
-    """Host filter/pack of one candidate pass's stats [9, P]."""
+                        sub_vol_read_start: int, opts: MapOptions):
+    """Host filter/pack of one candidate pass's stats [9, P]: the
+    candidates, and the stats column each came from."""
     pv = st[2].astype(bool)
     n_seeds, score = st[3], st[4]
     qbeg, qend, sbeg, send = st[5], st[6], st[7], st[8]
@@ -170,7 +171,7 @@ def stats_to_candidates(st: np.ndarray, qids, lens, qdir, sub_sizes,
                | ((send - sbeg) >= opts.align_size_cutoff)))
     idx = np.flatnonzero(keep)
     pq, psid = st[0][idx], st[1][idx]
-    return Candidates(
+    return idx, Candidates(
         qid=qids[pq].astype(np.int32),
         sid=(psid + sub_vol_read_start).astype(np.int32),
         qdir=np.full(len(idx), qdir, dtype=np.int8),

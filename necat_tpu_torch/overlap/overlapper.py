@@ -1,13 +1,14 @@
 """Read sets -> candidates -> extended M4 overlaps, on one device
 (counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates,
-extend_candidates with its long-indel rescue ladder, which the JAX
-package's callers all leave on at its default scales, overlap_all_vs_all
-of one read volume and map_reads_to_reference)."""
+candidates_by_volumes, extend_candidates with its long-indel rescue
+ladder, which the JAX package's callers all leave on at its default scales,
+overlap_all_vs_all and map_reads_to_reference)."""
 
 from __future__ import annotations
 
+import time
 from collections import Counter
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -26,46 +27,122 @@ from necat_tpu_torch.utils.device import resolve_device
 
 
 def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
-                        pairwise: bool, *, device, query_batch_size: int = 256,
-                        index: Optional[KmerIndex] = None) -> Candidates:
-    """Candidates of qstore reads against sstore, on `device`.
+                        pairwise: bool, *, device="cuda", query_batch_size: int = 256,
+                        index: Optional[KmerIndex] = None, subject_read_start: int = 0,
+                        query_ids: Optional[np.ndarray] = None) -> Candidates:
+    """Candidates of qstore reads against sstore (one subject volume), on
+    `device`.
 
-    pairwise=True means qstore is sstore (one id space): each overlap is
-    found once, from the read positioned later in the store (hits at
-    subject positions >= the query read's own start are dropped,
-    word_finder.c:121-127). Queries run in batches of query_batch_size in
-    ascending length order, both strands per batch; the best opts.ncan
-    candidates per query are kept (pm_worker.c:163-186)."""
+    pairwise=True means both stores share one id space: each overlap is
+    found once, from the read positioned later (hits at subject positions
+    >= the query read's own start are dropped, word_finder.c:121-127).
+    subject_read_start is the global id of sstore's first read (oc2pmov's
+    volume offset): sstore may be a volume of qstore. query_ids restricts
+    the queries to those global ids. Queries run in batches of
+    query_batch_size in ascending length order, both strands per batch; the
+    best opts.ncan candidates per query are kept (pm_worker.c:163-186)."""
+    cands, _ = _search(qstore, sstore, opts, pairwise, resolve_device(device),
+                       query_batch_size, index, subject_read_start, query_ids)
+    return top_n_per_query(cands, opts.ncan)
+
+
+# seconds of each k-mer index build of find_all_candidates and
+# candidates_by_volumes, in order (one per subject volume), for the callers'
+# reports; never cleared here
+index_build_s: List[float] = []
+
+
+def _build_index(sstore: ReadStore, opts: MapOptions, dev) -> KmerIndex:
+    t0 = time.perf_counter()
+    index = KmerIndex.build(sstore.bases, sstore.offsets, device=dev,
+                            k=opts.kmer_size, occ_cutoff=opts.occ_cutoff)
+    index_build_s.append(time.perf_counter() - t0)
+    return index
+
+
+def _search(qstore, sstore, opts, pairwise, dev, query_batch_size, index,
+            subject_read_start, query_ids, qdev=None):
+    """find_all_candidates before its top-n cut: (candidates, the chain of
+    each). A query store at or past shapes.DEVICE_STORE_MAX_BASES is read
+    into batches on the host and uploaded, unless qdev is given."""
     if not isinstance(opts, MapOptions):
         raise TypeError(f"find_all_candidates takes necat_tpu_torch's MapOptions, not "
                         f"{type(opts).__module__}.{type(opts).__name__}")
-    dev = resolve_device(device)
     if index is None:
-        index = KmerIndex.build(sstore.bases, sstore.offsets, device=dev,
-                                k=opts.kmer_size, occ_cutoff=opts.occ_cutoff)
-    qdev = DeviceReadStore(qstore, dev)
+        index = _build_index(sstore, opts, dev)
+    if qdev is None and qstore.total_bases < shapes.DEVICE_STORE_MAX_BASES:
+        qdev = DeviceReadStore(qstore, dev)
     sub_offsets = torch.as_tensor(sstore.offsets.astype(np.int64), device=dev)
     sub_sizes = sstore.lengths.astype(np.int32)
+    ns = sstore.n_reads
     int32_max = np.iinfo(np.int32).max
-    order = np.argsort(qstore.lengths, kind="stable")
-    parts = []
+    all_q = np.arange(qstore.n_reads) if query_ids is None else np.asarray(query_ids)
+    order = all_q[np.argsort(qstore.lengths[all_q], kind="stable")]
+    parts, chains = [], []
     for bs in range(0, len(order), query_batch_size):
         qidx = order[bs:bs + query_batch_size]
         pad = shapes.length_tier(int(qstore.lengths[qidx].max()))
         lens = qstore.lengths[qidx].astype(np.int32)
+        limit = np.full(len(qidx), int32_max, np.int64)
         if pairwise:
-            limit = sstore.offsets[qidx].astype(np.int64)
-        else:
-            limit = np.full(len(qidx), int32_max, np.int64)
+            # a query outside the subject volume has no limit there
+            # (necat_tpu/overlap/candidates.py:292-304)
+            local = qidx - subject_read_start
+            in_vol = (local >= 0) & (local < ns)
+            limit[in_vol] = sstore.offsets[local[in_vol]]
         soff_limit = torch.as_tensor(limit, device=dev)
         lens_dev = torch.as_tensor(lens, device=dev)
         for qdir in (0, 1):
-            batch = qdev.read_rows(qidx, np.full(len(qidx), bool(qdir)), pad)
+            if qdev is not None:
+                batch = qdev.read_rows(qidx, np.full(len(qidx), bool(qdir)), pad)
+            else:
+                batch = torch.from_numpy(qstore.padded_batch(
+                    qidx, pad_to=pad, multiple=1, rc=bool(qdir))[0]).to(dev)
             st = candidates_forward(index, sub_offsets, batch, lens_dev,
-                                    soff_limit, opts)
-            parts.append(stats_to_candidates(st.cpu().numpy(), qidx.astype(np.int32),
-                                             lens, qdir, sub_sizes, 0, opts))
-    return top_n_per_query(Candidates.concat(parts), opts.ncan)
+                                    soff_limit, opts).cpu().numpy()
+            # the stats hold chain 0 of every pair, then chain 1, ...
+            chain = np.arange(st.shape[1]) // max(st.shape[1] // opts.n_chains_per_pair, 1)
+            kept, c = stats_to_candidates(st, qidx.astype(np.int32), lens, qdir, sub_sizes,
+                                          subject_read_start, opts)
+            parts.append(c)
+            chains.append(chain[kept])
+    chain = np.concatenate(chains) if chains else np.zeros(0, np.int64)
+    return Candidates.concat(parts), chain
+
+
+def candidates_by_volumes(store: ReadStore, opts: MapOptions, vol_size: int, *,
+                          device="cuda", query_batch_size: int = 256) -> Candidates:
+    """Pairwise candidates with the subject side tiled into <= vol_size-base
+    volumes (oc2mkdb + per-volume oc2pmov, pm_worker.c:283-335), on
+    `device`: one k-mer index at a time, each built from its volume's own
+    bases and offsets, searched by every read from the volume's first read
+    on (the pairwise limit covers the volume's own reads). The union holds
+    exactly the untiled candidates; it is put in the order the untiled search
+    emits them (query batch, strand, chain, query, subject) before the top-n
+    cut, so that every later stage sees the same rows in the same order (the
+    JAX package concatenates the volumes' top-n sets, the same set in
+    another order)."""
+    dev = resolve_device(device)
+    qdev = (DeviceReadStore(store, dev)
+            if store.total_bases < shapes.DEVICE_STORE_MAX_BASES else None)
+    parts, chains = [], []
+    for slo, shi in store.volumes(vol_size):
+        off = store.offsets
+        svol = ReadStore(bases=store.bases[off[slo]:off[shi]],
+                         offsets=off[slo:shi + 1] - off[slo], names=store.names[slo:shi])
+        c, chain = _search(store, svol, opts, True, dev, query_batch_size, None, slo,
+                           np.arange(slo, store.n_reads), qdev=qdev)
+        parts.append(c)
+        chains.append(chain)
+    cands = Candidates.concat(parts)
+    if not len(cands):
+        return cands
+    pos = np.empty(store.n_reads, np.int64)      # each read's place in the untiled order
+    pos[np.argsort(store.lengths, kind="stable")] = np.arange(store.n_reads)
+    qpos = pos[cands.qid]
+    order = np.lexsort((cands.sid, qpos % query_batch_size, np.concatenate(chains),
+                        cands.qdir, qpos // query_batch_size))
+    return top_n_per_query(cands.take(order), opts.ncan)
 
 
 # bytes of per-column buffers a slice of extension chunks may hold (about 20
@@ -121,7 +198,7 @@ def rescue_hangs(cands: Candidates, idxs: np.ndarray, qoff: np.ndarray,
 
 
 def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *,
-                      device, min_align_size: int = 400, min_ident: float = 0.0,
+                      device="cuda", min_align_size: int = 400, min_ident: float = 0.0,
                       band_width: int = 128) -> M4Records:
     """Banded-extend candidates into M4 records (end points and identity), on
     `device`.
@@ -159,19 +236,25 @@ def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *
         send=out["tend"][ki].astype(np.int32), ssize=cands.ssize[ki])
 
 
-def overlap_all_vs_all(store: ReadStore, opts: MapOptions, *, device) -> M4Records:
+def overlap_all_vs_all(store: ReadStore, opts: MapOptions, *, device="cuda",
+                       vol_size: int = 0) -> M4Records:
     """All-vs-all overlaps of one read set on `device`, each reported once
     (from the read later in the store); M4Records.swap_roles gives the other
     read's view. Every caller of the JAX package's version takes its default
-    extension (band 128, min_align_size 400, min_ident 0). One read volume
-    only: the volume tiling (vol_size, candidates_by_volumes) is not ported,
-    and the stages refuse read sets that would need it."""
-    cands = find_all_candidates(store, store, opts, pairwise=True, device=device)
+    extension (band 128, min_align_size 400, min_ident 0). vol_size > 0
+    tiles the subject side into <= vol_size-base volumes
+    (candidates_by_volumes), bounding the k-mer index; the extension still
+    uploads the whole store, which must stay below
+    shapes.DEVICE_STORE_MAX_BASES (as in the JAX package)."""
+    if vol_size > 0:
+        cands = candidates_by_volumes(store, opts, vol_size, device=device)
+    else:
+        cands = find_all_candidates(store, store, opts, pairwise=True, device=device)
     return extend_candidates(cands, store, store, device=device)
 
 
 def map_reads_to_reference(qstore: ReadStore, refstore: ReadStore, opts: MapOptions, *,
-                           device, min_align_size: int = 400, min_ident: float = 0.0,
+                           device="cuda", min_align_size: int = 400, min_ident: float = 0.0,
                            band_width: int = 128) -> M4Records:
     """Reads mapped to a reference set (contigs) on `device`, the oc2rm
     role: candidates of every read against refstore, then the banded

@@ -106,7 +106,7 @@ def _filter_unique_placement(cands: Candidates, info,
     return cands.take(np.flatnonzero(keep))
 
 
-def polish_contigs(contigs: ReadStore, reads: ReadStore, *, device,
+def polish_contigs(contigs: ReadStore, reads: ReadStore, *, device="cuda",
                    map_opts: MapOptions | None = None,
                    opts: PolishOptions = PolishOptions()) -> ReadStore:
     """Polish contigs with reads on `device`; returns the polished contigs."""

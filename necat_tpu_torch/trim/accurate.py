@@ -55,7 +55,7 @@ class TrimAccurateOptions:
 def trim_reads_accurate(store: ReadStore, m4: M4Records,
                         opts: TrimAccurateOptions = TrimAccurateOptions(),
                         cns_overrides: dict | None = None, *,
-                        device) -> Tuple[ReadStore, np.ndarray, np.ndarray]:
+                        device="cuda") -> Tuple[ReadStore, np.ndarray, np.ndarray]:
     """Accurate-trim every read, the consensus on `device`. `m4` holds each
     overlap once (role expansion happens here, the oc2pm4 duplication).
     Returns (trimmed_store, kept_read_ids, cover_ranges[N, 2]); the output

@@ -1,4 +1,5 @@
-"""The caller names the device; nothing here picks one."""
+"""The device the caller names ("cuda" by default at every entry point);
+nothing here falls back to another."""
 
 from __future__ import annotations
 

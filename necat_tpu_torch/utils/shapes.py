@@ -18,6 +18,11 @@ EXTENSION_BYTES = 2 << 30
 BAND_W_DEFAULT = 128
 # absolute band ceiling of the rescue ladder
 MAX_BAND = 4096
+# bases a DeviceReadStore may hold (its row descriptors are int32). Read sets
+# at or past it correct in SMALL_MEMORY mode over subject volumes, with the
+# candidate queries gathered on the host. Read at call time, so that a test
+# can lower it.
+DEVICE_STORE_MAX_BASES = 1 << 31
 
 
 def length_tier(x: int) -> int:

@@ -4,7 +4,7 @@ choice, through the pipeline's stages (correct -> trim -> assemble ->
 polish), then the bridge stage on the assembled contigs.
 
     python scripts/torch_assemble_run.py [--genome-size 4600000] [--coverage 40]
-        [--seed 7] [--work DIR] [--out FILE] [--no-polish]
+        [--seed 7] [--work DIR] [--out FILE] [--no-polish] [--vol-size BASES]
 
 The reads are gen_benchmark_reads(genome_size, coverage, seed) (the E. coli
 stand-in of bench.py at the defaults), the config is the template's with
@@ -17,8 +17,13 @@ to 4-fsa/contigs.fasta, the contigs to each other, contigs joined; its
 output is not polished) follows, on a line of its own: the stage's manifest
 (seconds of map, c2c, graph and junction, links, pairs per band), contigs
 and N50 in and out, its peak device memory and its launches per (kernel,
-W). --no-polish leaves the polish stage out. Nothing is compared: this is
-an exploratory run.
+W). --no-polish leaves the polish stage out. --vol-size sets VOL_SIZE
+(subject volumes of at most that many bases in correct, trim and assemble)
+and first runs the correct stage's first candidate search (its input read
+set, OVLP_SENSITIVE_OPTIONS) untiled and in volumes: the "volumes" line
+holds both searches' seconds, index-build seconds and peak device memory,
+and whether the candidates are equal field for field. Nothing else is
+compared: this is an exploratory run.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 STAGES = (("correct", "1-consensus"), ("trim", "2-trim_bases"), ("assemble", "4-fsa"),
@@ -46,6 +52,8 @@ def main() -> int:
     ap.add_argument("--work", default="build/assemble_run")
     ap.add_argument("--out", help="also append the JSON lines to this file")
     ap.add_argument("--no-polish", action="store_true", help="leave the polish stage out")
+    ap.add_argument("--vol-size", type=int, default=0,
+                    help="VOL_SIZE: subject volumes of at most this many bases (0: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_assemble_run: CUDA is not available", file=sys.stderr)
@@ -78,12 +86,15 @@ def main() -> int:
         f.write(config_mod.CONFIG_TEMPLATE.replace(
             "PROJECT=", f"PROJECT={os.path.join(work, 'project')}").replace(
             "ONT_READ_LIST=", f"ONT_READ_LIST={os.path.join(work, 'read_list.txt')}").replace(
-            "GENOME_SIZE=", f"GENOME_SIZE={args.genome_size}"))
+            "GENOME_SIZE=", f"GENOME_SIZE={args.genome_size}")
+            + (f"\nVOL_SIZE={args.vol_size}\n" if args.vol_size else ""))
     emit("reads", {"reads": store.n_reads, "bases": int(store.total_bases),
                    "setup_s": time.perf_counter() - t0,
                    "device": torch.cuda.get_device_name(0)})
     cfg = config_mod.load_config(cfg_path)
     prj = Project(cfg, cfg.project)
+    if args.vol_size:
+        emit("volumes", compare_volumes(cfg, args.vol_size))
     bk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -133,6 +144,39 @@ def main() -> int:
         "k3_by_words": {f"{w}x{n_w}": n for (w, n_w), n in
                         sorted(bk.k3_launches_by_words.items())}})
     return 0
+
+
+def compare_volumes(cfg, vol_size: int) -> dict:
+    """The correct stage's first candidate search, untiled and in volumes,
+    on the card: seconds, index-build seconds, peak memory, equality."""
+    import dataclasses
+
+    from necat_tpu_torch.overlap import overlapper
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.pipeline.stages import load_raw_reads
+    reads = load_raw_reads(cfg, keep_coverage=cfg.prep_output_coverage)
+    mopts = MapOptions.from_string(cfg.get("OVLP_SENSITIVE_OPTIONS", ""))
+    row = {"reads": reads.n_reads, "bases": int(reads.total_bases),
+           "volumes": reads.volumes(vol_size)}
+    found = {}
+    for name, search in (
+            ("untiled", lambda: overlapper.find_all_candidates(reads, reads, mopts,
+                                                               pairwise=True, device="cuda")),
+            ("tiled", lambda: overlapper.candidates_by_volumes(reads, mopts, vol_size,
+                                                               device="cuda"))):
+        overlapper.index_build_s.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        found[name] = search()
+        torch.cuda.synchronize()
+        row[name] = {"candidates": len(found[name]), "seconds": time.perf_counter() - t0,
+                     "index_build_s": list(overlapper.index_build_s),
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    row["equal"] = all(np.array_equal(getattr(found["untiled"], f.name),
+                                      getattr(found["tiled"], f.name))
+                       for f in dataclasses.fields(found["untiled"]))
+    return row
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ from necat_tpu.pipeline.stages import Project as JaxProject
 from necat_tpu_torch.io import simulate
 from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.pipeline import cli
+from necat_tpu_torch.pipeline import config as config_mod
+from necat_tpu_torch.pipeline.stages import Project
+from necat_tpu_torch.utils import shapes
 from torch_port_helpers import cap_max_band, jax_static_band  # noqa: F401
 
 
@@ -84,7 +87,21 @@ def test_run_assemble_matches_jax(jax_static_band, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", ["SMALL_MEMORY=1\n", "VOL_SIZE=100000\n"])
-def test_run_assemble_refuses_unported_modes(tmp_path, extra):
-    cfg = _write_asm_config(tmp_path, "refused", extra)
-    with pytest.raises(NotImplementedError):
-        cli.main(["assemble", str(cfg), "--device", "cpu"])
+def test_run_assemble_refuses_unported_modes(tmp_path, monkeypatch, extra):
+    """Assemble and polish on a read set at or past
+    shapes.DEVICE_STORE_MAX_BASES (lowered here to the raw reads' size) are
+    refused before any work, SMALL_MEMORY and VOL_SIZE notwithstanding: their
+    extension needs the whole set on the device, as in the JAX package. The
+    stages before them are stubbed out."""
+    cfg = config_mod.load_config(_write_asm_config(tmp_path, "refused", extra))
+    reads = tmp_path / "asm_reads.fasta"
+    monkeypatch.setattr(shapes, "DEVICE_STORE_MAX_BASES",
+                        ReadStore.from_fasta(reads).total_bases)
+    monkeypatch.setattr(Project, "run_trim", lambda self, device="cuda": str(reads))
+    prj = Project(cfg, cfg.project)
+    with pytest.raises(NotImplementedError, match="DEVICE_STORE_MAX_BASES"):
+        prj.run_assemble(device="cpu")
+    with pytest.raises(NotImplementedError, match="DEVICE_STORE_MAX_BASES"):
+        prj.run_polish(str(reads), "final", device="cpu")
+    assert not (tmp_path / "refused" / "4-fsa" / "contigs.fasta").exists()
+    assert not (tmp_path / "refused" / "polished_contigs.fasta").exists()

@@ -91,11 +91,15 @@ def test_cutoff_from_idents_matches_jax():
 
 
 def test_correct_reads_refuses_unported_modes():
+    """fused=False and a list of devices stay refused; small_memory runs
+    (without candidates every read passes through uncorrected)."""
     jrs, rs = small_store(G=6000, coverage=2)
     empty = Candidates.concat([])
-    for opts in (CnsOptions(small_memory=True), CnsOptions(fused=False)):
-        with pytest.raises(NotImplementedError):
-            correct_reads(rs, empty, opts, device="cpu")
+    recs = correct_reads(rs, empty, CnsOptions(small_memory=True), device="cpu")
+    assert [r.tid for r in recs] == list(range(rs.n_reads))
+    assert not any(r.corrected for r in recs)
+    with pytest.raises(NotImplementedError):
+        correct_reads(rs, empty, CnsOptions(fused=False), device="cpu")
     with pytest.raises(NotImplementedError):
         correct_reads(rs, empty, CnsOptions(), device=["cpu", "cpu"])
     for store, opts in ((jrs, CnsOptions()), (rs, as_jax(CnsOptions()))):

@@ -4,6 +4,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from necat_tpu.pipeline import config as jax_config
 from necat_tpu.pipeline.stages import Project as JaxProject
@@ -11,6 +12,7 @@ from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.pipeline import cli
 from necat_tpu_torch.pipeline import config as config_mod
 from necat_tpu_torch.pipeline.stages import Project
+from necat_tpu_torch.utils import shapes
 from torch_port_helpers import cap_max_band, indel_store, jax_static_band_wide  # noqa: F401
 
 
@@ -61,24 +63,34 @@ def test_run_correct_matches_jax(jax_static_band_wide, monkeypatch, tmp_path):
 
 
 def test_run_correct_refuses_unported_modes(tmp_path, monkeypatch):
-    cfg = config_mod.load_config(_write_config(tmp_path, "vol", "VOL_SIZE=100000\n"))
-    with pytest.raises(NotImplementedError):
-        Project(cfg, cfg.project).run_correct(device="cpu")
+    """NECAT_TPU_NUM_PROCS=2 without a coordinator runs as one process (no
+    part files, no per-process reports), as in the JAX package; trim on a
+    read set at or past shapes.DEVICE_STORE_MAX_BASES (lowered here) is
+    still refused: its extension needs the whole set on the device."""
     monkeypatch.setenv("NECAT_TPU_NUM_PROCS", "2")
-    cfg = config_mod.load_config(_write_config(tmp_path, "hosts"))
-    with pytest.raises(NotImplementedError):
-        Project(cfg, cfg.project).run_correct(device="cpu")
+    monkeypatch.delenv("NECAT_TPU_COORDINATOR", raising=False)
+    cfg = config_mod.load_config(_write_config(tmp_path, "hosts", "NUM_ITER=1\n"))
+    out = Project(cfg, cfg.project).run_correct(device="cpu")
+    assert ReadStore.from_fasta(out).n_reads >= 3
+    assert not list((tmp_path / "hosts" / "1-consensus").glob("it*.part*"))
+    done = json.loads((tmp_path / "hosts" / "1-consensus" / "correct.done.json").read_text())
+    assert "by_process" not in done
+    reads = ReadStore.from_fasta(tmp_path / "reads.fasta")
+    monkeypatch.setattr(shapes, "DEVICE_STORE_MAX_BASES", reads.total_bases)
+    monkeypatch.setattr(Project, "run_correct",
+                        lambda self, device="cuda": str(tmp_path / "reads.fasta"))
+    cfg = config_mod.load_config(_write_config(tmp_path, "vol"))
+    with pytest.raises(NotImplementedError, match="DEVICE_STORE_MAX_BASES"):
+        Project(cfg, cfg.project).run_trim(device="cpu")
 
 
 def test_cli(tmp_path, capsys):
     cfg = tmp_path / "t.cfg"
     assert cli.main(["config", str(cfg)]) == 0
     assert config_mod.load_config(cfg).num_iter == 2
-    for cmd in ("correct", "assemble", "bridge"):
-        with pytest.raises(SystemExit) as e:               # no default device
-            cli.main([cmd, str(cfg)])
-        assert e.value.code != 0
-        assert "--device" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        for cmd in ("correct", "assemble", "bridge"):      # the default device is cuda
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                cli.main([cmd, str(cfg)])
     with pytest.raises(SystemExit):
         cli.main(["correct", str(cfg), "--device", "tpu"])
-
