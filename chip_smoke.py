@@ -92,11 +92,32 @@ Phases, each failing the run on error:
              process 0; cns_final and polished_contigs.fasta must equal
              phase 10's, and each process's manifest report must show pairs
              extended (K1 and K3 launched). A failed process fails the run.
-Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1), so that none hides a
-failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
+ 17. index  (a) the bench set's k-mer index built on the card
+             (KmerIndex.build_on_device from main's packed store, torch.sort)
+             equals the native host build array for array; the device
+             build's seconds (synchronised) and peak beside the host build's
+             (its upload included); (b) main's search through the gate (the
+             device build) and with the host-built index give main's
+             candidates field for field; (c) a volume of E. coli scale
+             (ECOLI_VOLUME: reads of a random 4.6 Mb genome at 40x, 10 %
+             substitutions, 184 Mb, below shapes.DEVICE_INDEX_MAX_BASES):
+             the device build equals the native one array for array,
+             seconds and peak of both;
+ 18. devices two shards on cuda:0, or one on each card where there are
+             several: (a) main's inputs through find_all_candidates and
+             correct_reads with the device list (buckets_per_supergroup
+             pinned at the list's length) equal main's candidates field for
+             field and a one-device run's records in order; (b)
+             overlap_all_vs_all of phase 4's read set with the list equals
+             its one-device M4 rows; (c) `cli correct --device <list>` in a
+             fresh project from phase 8's config writes phase 8's cns_final
+             (content); K1 and K3 must launch at 128 and K2 never.
+Phases 17 and 18 run before 16, which empties this process's allocator
+for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
+so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
-small-memory, volumes) and read after it; phase 16's launches run in other
+small-memory, volumes, index, devices) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
@@ -155,6 +176,10 @@ PHASE10 = os.path.join(WORK, "phase10")     # copies of phase 10's outputs
 PHASE10_FILES = ("1-consensus/cns_final.fasta.gz", "trimReads.fasta.gz", "4-fsa/contigs.fasta",
                  "polished_contigs.fasta")
 VOL_SIZE = 1_500_000                 # phase 15: three volumes of the 4.02 Mb bench set
+# phase 17c: genome size, coverage, read lengths and substitution rate of the
+# E. coli-scale volume (PERF.md's 4.6 Mb x40 stand-in, 184 Mb)
+ECOLI_VOLUME = dict(genome_size=4_600_000, coverage=40, min_len=3000, max_len=20000,
+                    sub=0.10, seed=7)
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
@@ -1160,6 +1185,185 @@ def check_stripes(cfg_path: str, smi: str, timeout: int = 600) -> None:
     print("stripes: cns_final and polished contigs equal phase 10's", flush=True)
 
 
+def ecoli_volume(genome_size: int, coverage: int, min_len: int, max_len: int,
+                 sub: float, seed: int):
+    """Reads of a random genome at `coverage`: uniform lengths and starts,
+    either strand, `sub` of the bases substituted (the k-mer index sees no
+    indels); made with numpy from `seed`."""
+    from necat_tpu_torch.io.readstore import ReadStore
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_size, dtype=np.uint8)
+    reads, total = [], 0
+    while total < coverage * genome_size:
+        n = int(rng.integers(min_len, max_len + 1))
+        s0 = int(rng.integers(0, genome_size - n))
+        r = genome[s0:s0 + n].copy()
+        if rng.random() < 0.5:
+            r = (3 - r[::-1]).astype(np.uint8)
+        hit = rng.random(n) < sub
+        r[hit] = (r[hit] + rng.integers(1, 4, int(hit.sum()), dtype=np.uint8)) & 3
+        reads.append(r)
+        total += n
+    return ReadStore.from_seqs(reads)
+
+
+def _timed_build(dev, build):
+    """(index, seconds to a synchronised end, peak device GiB) of build()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = build()
+    torch.cuda.synchronize()
+    return index, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _same_index(a, b, what: str) -> None:
+    for f in ("sorted_hashes", "sorted_positions", "bucket_starts", "run_end"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {f} of the device build differs from the host's")
+    if a.n_search_steps != b.n_search_steps:
+        raise AssertionError(f"{what}: n_search_steps {a.n_search_steps} != {b.n_search_steps}")
+
+
+def check_index(dev, launch_counts: dict, main_inputs, smi: str) -> None:
+    """(a) The bench set's index built on the card equals the host build;
+    (b) main's search through the gate and with the host-built index give
+    main's candidates; (c) the same build equality on an E. coli-scale
+    volume. Seconds and peaks of both builds."""
+    import dataclasses as dc
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.index.kmer_index import KmerIndex
+    from necat_tpu_torch.io.devstore import DeviceReadStore
+    from necat_tpu_torch.overlap import overlapper
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.utils import shapes
+    store, cands, _, _ = main_inputs
+    bk.reset_launches()
+    res = {}
+    vol = None
+    for name in ("bench", "ecoli"):
+        if name == "ecoli":
+            t0 = time.perf_counter()
+            vol = store = ecoli_volume(**ECOLI_VOLUME)
+            res["ecoli_made_s"] = time.perf_counter() - t0
+        if store.total_bases > shapes.DEVICE_INDEX_MAX_BASES:
+            raise AssertionError(f"index: {store.total_bases} bases exceed the device gate")
+        packed, up_s, _ = _timed_build(dev, lambda: DeviceReadStore(store, dev))
+        on_card, dev_s, dev_peak = _timed_build(
+            dev, lambda: KmerIndex.build_on_device(packed, device=dev))
+        on_host, host_s, host_peak = _timed_build(
+            dev, lambda: KmerIndex.build(store.bases, store.offsets, device=dev))
+        _same_index(on_card, on_host, f"index ({name})")
+        res[name] = {"reads": store.n_reads, "bases": int(store.total_bases),
+                     "kmers": int(on_card.sorted_hashes.numel()),
+                     "pack_upload_s": up_s, "device_build_s": dev_s,
+                     "device_peak_gib": dev_peak, "host_build_upload_s": host_s,
+                     "host_peak_gib": host_peak}
+        if name == "bench":
+            calls = []
+            build = KmerIndex.__dict__["build_on_device"]
+            KmerIndex.build_on_device = classmethod(
+                lambda cls, *a, **kw: calls.append(1) or build.__func__(cls, *a, **kw))
+            try:
+                overlapper.index_build_s.clear()
+                t0 = time.perf_counter()
+                gated = overlapper.find_all_candidates(store, store, MapOptions(), True,
+                                                       device=dev)
+                res["bench"]["search_device_index_s"] = time.perf_counter() - t0
+                res["bench"]["search_index_build_s"] = list(overlapper.index_build_s)
+            finally:
+                KmerIndex.build_on_device = build
+            t0 = time.perf_counter()
+            hosted = overlapper.find_all_candidates(store, store, MapOptions(), True,
+                                                    device=dev, index=on_host)
+            res["bench"]["search_host_index_s"] = time.perf_counter() - t0
+            if calls != [1]:
+                raise AssertionError(f"index: the search built on the card {len(calls)} times")
+            for c, what in ((gated, "device-built"), (hosted, "host-built")):
+                for f in dc.fields(cands):
+                    if not np.array_equal(getattr(c, f.name), getattr(cands, f.name)):
+                        raise AssertionError(f"index: {what} search's {f.name} differs "
+                                             "from main's")
+        del packed, on_card, on_host
+    del vol
+    launch_counts["index"] = _launches(bk)
+    print("index " + json.dumps({**res, "card": smi}), flush=True)
+    print("index: device builds equal the host builds (bench and E. coli scale); main's "
+          "search gives main's candidates with either index", flush=True)
+
+
+def check_devices(dev, launch_counts: dict, main_inputs, cfg_path: str, smi: str) -> None:
+    """Two shards on the card (or one on each card): (a) main's candidates
+    and records, (b) the slice set's overlaps, (c) `cli correct` with the
+    list writes phase 8's cns_final."""
+    import dataclasses as dc
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.overlap.overlapper import find_all_candidates, overlap_all_vs_all
+    from necat_tpu_torch.pipeline import cli
+    n_cards = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n_cards)] if n_cards > 1
+            else [dev, dev])
+    spec = ",".join(str(d) for d in devs)
+    store, cands, call, want = main_inputs
+    pinned = CnsOptions(buckets_per_supergroup=len(devs))
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # the one-device run first, in the same conditions, for the seconds
+    timed("one_device_candidates_s",
+          lambda: find_all_candidates(store, store, MapOptions(), True, device=dev))
+    one = timed("one_device_correct_s", lambda: correct_reads(store, call, pinned, device=dev))
+    slice_rs = slice_store()
+    mo = MapOptions(**SLICE_MAP)
+    m4_one = overlap_all_vs_all(slice_rs, mo, device=dev)
+    bk.reset_launches()
+    got = timed("candidates_s",
+                lambda: find_all_candidates(store, store, MapOptions(), True, device=devs))
+    recs = timed("correct_s", lambda: correct_reads(store, call, pinned, device=devs))
+    m4 = overlap_all_vs_all(slice_rs, mo, device=devs)
+    path, prj = _project_config(cfg_path, "project_dev", "")
+    t3 = time.perf_counter()
+    rc = cli.main(["correct", path, "--device", spec])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t3
+    launch_counts["devices"] = counts = _launches(bk)
+    with open(os.path.join(prj, "1-consensus", "correct.done.json")) as f:
+        manifest = json.load(f)
+    print("devices " + json.dumps({
+        "devices": spec, "distinct_cards": len(set(devs)), **secs, "cli_correct_s": cli_s, "manifest_devices": manifest["devices"],
+        "records_equal_main": [(r.tid, r.left, r.right) for r in recs]
+        == [(r.tid, r.left, r.right) for r in want],
+        "launches": _by_width(counts), "card": smi}), flush=True)
+    for f in dc.fields(cands):
+        if not np.array_equal(getattr(got, f.name), getattr(cands, f.name)):
+            raise AssertionError(f"devices: candidate field {f.name} differs from main's")
+    _same_records(one, recs)
+    for f in dc.fields(m4):
+        if not np.array_equal(getattr(m4, f.name), getattr(m4_one, f.name)):
+            raise AssertionError(f"devices: M4 field {f.name} differs from one device's")
+    if rc != 0:
+        raise AssertionError(f"devices: the command line exited {rc}")
+    missing = [k for k in ON_PATH if not counts["by_width"].get((k, 128))]
+    if missing or any(k == "diag_sub_matrix" for (k, _), n in counts["by_width"].items() if n):
+        raise AssertionError(f"devices: K1 and K3 must launch at 128 and K2 not: "
+                             f"{_by_width(counts)}")
+    _same_as_phase10(prj, PHASE10_FILES[:1], "devices")
+    print(f"devices: {len(set(devs))} distinct card(s), {len(devs)} shards: candidates "
+          "equal main's, records a one-device run's, M4 rows one device's, cns_final "
+          "phase 8's", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
@@ -1187,6 +1391,8 @@ def main() -> int:
     check_trim_accurate(dev, launch_counts, cfg_path, genome, fast)
     check_small_memory(dev, launch_counts, main_inputs, smi)
     check_volumes(dev, launch_counts, main_inputs, cfg_path, smi)
+    check_index(dev, launch_counts, main_inputs, smi)
+    check_devices(dev, launch_counts, main_inputs, cfg_path, smi)
     check_stripes(cfg_path, smi)
     for (name, W, words), entry in kernels.items():
         by_path = {path: (c["k3_by_words"].get((W, words), 0) if words

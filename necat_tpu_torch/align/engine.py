@@ -102,13 +102,23 @@ def new_stats(n_pairs: int) -> dict:
 
 class ExtendEngine:
     """Plans and runs extension chunks over a query and a subject
-    DeviceReadStore (both on one device)."""
+    DeviceReadStore on one device, or over lists of them, one (query,
+    subject) pair of stores per device: a submitted pass then runs its
+    chunks round-robin over the devices, whole chunks, where the JAX package
+    splits each chunk's rows over its mesh (necat_tpu/parallel/mesh.py:105,
+    align/engine.py:218). Lanes are independent, so the results are the
+    same; each chunk's outputs stay on its device."""
 
     def __init__(self, qdev, sdev, pairs_per_chunk: int = 1024):
-        self.qdev = qdev
-        self.sdev = sdev
+        self.qdevs = list(qdev) if isinstance(qdev, (list, tuple)) else [qdev]
+        self.sdevs = list(sdev) if isinstance(sdev, (list, tuple)) else [sdev]
+        if len(self.qdevs) != len(self.sdevs) or any(
+                q.device != t.device for q, t in zip(self.qdevs, self.sdevs)):
+            raise ValueError("ExtendEngine takes one query and one subject store per device")
+        self.qdev = self.qdevs[0]      # every device's stores hold the same reads
+        self.sdev = self.sdevs[0]
         self.cap = pairs_per_chunk
-        self.device = qdev.device
+        self.device = self.qdev.device
 
     def plan(
         self,
@@ -195,15 +205,15 @@ class ExtendEngine:
                groups: Optional[np.ndarray] = None, window_margin: int = 600,
                insb_words: int = 1) -> List[ExtChunk]:
         """Plan the pairs (plan's arguments; sel = the caller's pair ids) and
-        extend every chunk. Kernel launches are asynchronous; a chunk's
-        stats() is its sync point."""
+        extend every chunk, chunk i on device i mod the devices. Kernel
+        launches are asynchronous; a chunk's stats() is its sync point."""
         sel = np.asarray(sel)
         chunks: List[ExtChunk] = []
-        for p in self.plan(qids, qdir, qsize, tg_base, tsize, aq, at_abs, W,
-                           groups=groups, window_margin=window_margin):
-            desc = torch.from_numpy(p["desc"]).to(self.device)
-            out = gather_extend(self.qdev, self.sdev, desc, W, p["L"],
-                                insb_words=insb_words)
+        for i, p in enumerate(self.plan(qids, qdir, qsize, tg_base, tsize, aq, at_abs, W,
+                                        groups=groups, window_margin=window_margin)):
+            qdev, sdev = self.qdevs[i % len(self.qdevs)], self.sdevs[i % len(self.qdevs)]
+            desc = torch.from_numpy(p["desc"]).to(qdev.device)
+            out = gather_extend(qdev, sdev, desc, W, p["L"], insb_words=insb_words)
             chunks.append(ExtChunk(out=out, sel=sel[p["take"]], n_real=p["n_real"],
                                    L=p["L"], W=W, ws=p["ws"], group=p["group"]))
         return chunks

@@ -1,8 +1,11 @@
 """Read correction driver: candidates -> wave-based extension -> tag consensus.
 
-Counterpart of necat_tpu/consensus/correct.py, fused single-device mode:
-templates are bucketed (TB rows per consensus tensor) in descending length
-order; per supergroup, the reference's per-template wave loop
+Counterpart of necat_tpu/consensus/correct.py, fused mode, on one device or
+several: templates are bucketed (TB rows per consensus tensor) in
+descending length order, buckets_per_supergroup (default: one per device)
+buckets a supergroup, bucket g on device g mod the devices with its
+tensors, chunks and consensus call (necat_tpu/consensus/fused.py:313-345);
+per supergroup, the reference's per-template wave loop
 (consensus_one_read.c:317-372) runs as host-side selection over a coverage
 mirror, every chunk of a wave runs gather -> extend -> accept -> scatter on
 the device (consensus/fused.py), and the consensus of each bucket comes back
@@ -42,7 +45,7 @@ from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.utils import shapes
-from necat_tpu_torch.utils.device import resolve_device
+from necat_tpu_torch.utils.device import resolve_devices
 from necat_tpu_torch.utils.logging import logger
 
 # seconds spent in each part of correct_reads, added up over its calls (the
@@ -86,20 +89,14 @@ def group_by_template(cands: Candidates, max_examined: int) -> Dict[int, np.ndar
     return groups
 
 
-def _check_supported(opts: CnsOptions, store: ReadStore, device) -> None:
-    """The port runs the fused mode on one device only; refuse the others
+def _check_supported(opts: CnsOptions, store: ReadStore) -> None:
+    """The port runs the fused mode only; refuse the legacy two-program mode
     rather than run something else."""
     if not isinstance(opts, CnsOptions) or not isinstance(store, ReadStore):
         raise TypeError("correct_reads takes necat_tpu_torch's CnsOptions and ReadStore, "
                         f"not {type(opts).__module__}/{type(store).__module__}")
-    unsupported = {
-        "more than one device": isinstance(device, (list, tuple)),
-        "fused=False": opts.fused is False,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"necat_tpu_torch.correct_reads: {', '.join(bad)} "
-                                  "not ported")
+    if opts.fused is False:
+        raise NotImplementedError("necat_tpu_torch.correct_reads: fused=False not ported")
 
 
 def correct_reads(store: ReadStore, cands: Candidates,
@@ -107,10 +104,12 @@ def correct_reads(store: ReadStore, cands: Candidates,
                   min_cov_for_template: int | None = None,
                   emit_uncorrected: bool = True, template_ids=None,
                   template_cuts: dict | None = None) -> List[CnsRecord]:
-    """Correct all templates that have candidates, on one `device`. `cands`
-    must be role-expanded (each overlap present for both reads as templates).
-    Records come in the order of necat_tpu's correct_reads: uncorrected
-    passthrough first, then templates by descending length.
+    """Correct all templates that have candidates, on `device`: one device,
+    a list of them or a comma-separated string (each device holds the read
+    store and runs its buckets). `cands` must be role-expanded (each overlap
+    present for both reads as templates). Records come in the order of
+    necat_tpu's correct_reads: uncorrected passthrough first, then templates
+    by descending length; they do not depend on the devices.
 
     template_ids restricts the templates, and the uncorrected passthrough,
     to those read ids: a process's stripe in a multi-process run (the
@@ -120,14 +119,14 @@ def correct_reads(store: ReadStore, cands: Candidates,
     SMALL_MEMORY (opts.small_memory, or a store at or past
     shapes.DEVICE_STORE_MAX_BASES; oc2cns -s, read_id_pool.h:29-63): each
     supergroup uploads only the reads it touches, its templates and their
-    queries, and extends on local ids. Supergroups run one at a time, so at
-    most one supergroup's device arrays are alive.
+    queries, to each device, and extends on local ids. Supergroups run one
+    at a time, so at most one supergroup's device arrays are alive.
 
     template_cuts (template id -> positions; wide-delta mode only) splits
     corrected pieces at those positions: the polish stage cuts its windows'
     pieces at the core edges."""
-    _check_supported(opts, store, device)
-    dev = resolve_device(device)
+    _check_supported(opts, store)
+    devs = resolve_devices(device)
     groups = group_by_template(cands, opts.max_examined)
     min_need = opts.min_cov if min_cov_for_template is None else min_cov_for_template
     stripe = None if template_ids is None else {int(t) for t in template_ids}
@@ -146,19 +145,24 @@ def correct_reads(store: ReadStore, cands: Candidates,
     tids_sorted = tids_all[np.argsort(-store.lengths[tids_all], kind="stable")]
     small_memory = (opts.small_memory
                     or store.total_bases >= shapes.DEVICE_STORE_MAX_BASES)
-    engine = id_map = None
+    engines = id_map = None
+
+    def engines_of(st: ReadStore):
+        return [ExtendEngine(q, q, opts.pairs_per_chunk)
+                for q in (DeviceReadStore(st, d) for d in devs)]
+
     if not small_memory:
-        qdev = DeviceReadStore(store, dev)
-        engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
-    SG = opts.templates_per_batch * (opts.buckets_per_supergroup or 1)
+        engines = engines_of(store)
+    # buckets are the unit of multi-device data parallelism
+    # (necat_tpu/consensus/correct.py:171-185)
+    SG = opts.templates_per_batch * (opts.buckets_per_supergroup or len(devs))
     for s in range(0, len(tids_sorted), SG):
         sg_ids = tids_sorted[s:s + SG]
         if small_memory:
             id_map = np.unique(np.concatenate(
                 [sg_ids] + [cands.qid[groups[int(t)]] for t in sg_ids]).astype(np.int64))
-            qdev = DeviceReadStore(store.subset(id_map), dev)
-            engine = ExtendEngine(qdev, qdev, opts.pairs_per_chunk)
-        buckets, tpls = _run_supergroup(store, engine, cands, groups, sg_ids, opts, id_map)
+            engines = engines_of(store.subset(id_map))
+        buckets, tpls = _run_supergroup(store, engines, cands, groups, sg_ids, opts, id_map)
         records.extend(_compact_supergroup(store, buckets, tpls, opts,
                                            template_cuts or {}))
     return records
@@ -349,7 +353,7 @@ def _defer_ladder(run, stats, cands, p_ci, opts: CnsOptions) -> None:
         fused.collect_fused(run(sel_w, W=int(Wx)), stats, sel=sel_w)
 
 
-def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
+def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
                id_map) -> None:
     """Waves until no template has pending candidates: round 0 estimates the
     identity cutoffs (unless fixed) and scatters from the ident pass's
@@ -357,20 +361,20 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
     Without rescue the only host syncs are the per-chunk stats that feed the
     coverage mirror; the rescue ladder reads each rung's stats. id_map (the
     sorted global ids of a SMALL_MEMORY supergroup's store, else None) maps
-    the ids the device store is read by."""
+    the ids the device store is read by. Bucket bi's cutoffs and ident
+    buffer live on its tensors' device, engines[bi mod len(engines)]'s."""
     TB = opts.templates_per_batch
-    dev = engine.device
     estimating = not opts.use_fixed_ident_cutoff
     cut0 = 0.0 if estimating else 100.0 * (1.0 - opts.error)
-    cutoffs = {bi: torch.full((TB + 1,), cut0, dtype=torch.float32, device=dev)
-               for bi in range(len(buckets))}
+    cutoffs = {bi: torch.full((TB + 1,), cut0, dtype=torch.float32, device=b.weights.device)
+               for bi, b in enumerate(buckets)}
     tensors = {bi: (b.weights, b.covten) for bi, b in enumerate(buckets)}
     insb_words = _insb_words(opts)
     rescue = opts.rescue_long_indels
     W0 = opts.band_width
     round_id = 0 if estimating else 1        # consensus_one_read.c:273-278
     max_rounds = -(-opts.max_examined // opts.wave_size) + 1
-    offsets = engine.qdev.offsets
+    offsets = engines[0].qdev.offsets
     local = (lambda ids: ids) if id_map is None else (
         lambda ids: np.searchsorted(id_map, ids))
     while round_id <= max_rounds:
@@ -398,17 +402,17 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
             """dispatch_wave over the pairs idx of this wave."""
             d = {k: (v[idx] if isinstance(v, np.ndarray) else v)
                  for k, v in base.items()}
-            return fused.dispatch_wave(engine, **d, **kw)
+            return fused.dispatch_wave(engines, **d, **kw)
 
         npairs = len(p_ci)
         stats = fused.new_fused_stats(npairs)
         if round_id == 0:
             if wave > fused.IDENT_SLOTS:
                 raise ValueError("n_ident + 10 must fit fused.IDENT_SLOTS")
-            ibufs = {bi: torch.zeros((TB + 1, fused.IDENT_SLOTS, 3),
-                                     dtype=torch.float32, device=dev)
+            ibufs = {bi: torch.zeros((TB + 1, fused.IDENT_SLOTS, 3), dtype=torch.float32,
+                                     device=buckets[bi].weights.device)
                      for bi in sorted({int(g) for g in base["groups"]})}
-            chunks = fused.dispatch_wave(engine, **base, W=W0, slots=slots,
+            chunks = fused.dispatch_wave(engines, **base, W=W0, slots=slots,
                                          ibufs=ibufs)
             run0 = functools.partial(run, ibufs=ibufs)
             lane_w = (_ident_ladder(run0, chunks, npairs, cands, p_ci, slots,
@@ -425,7 +429,7 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
                     fused.collect_fused(run(idx, W=int(Wx)), stats, sel=idx)
         else:
             chunks = fused.dispatch_wave(
-                engine, **base, W=W0, rescue_defer=rescue,
+                engines, **base, W=W0, rescue_defer=rescue,
                 qend_cand=cands.qend[p_ci].astype(np.int64))
             fused.collect_fused(chunks, stats)
             if rescue:
@@ -443,21 +447,23 @@ def _run_waves(engine, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
         round_id += 1
 
 
-def _run_supergroup(store, engine, cands, groups, sg_ids, opts: CnsOptions, id_map):
-    """Waves of one supergroup, then the consensus call of each bucket;
-    returns the buckets, their consensus downloaded, and the templates."""
+def _run_supergroup(store, engines, cands, groups, sg_ids, opts: CnsOptions, id_map):
+    """Waves of one supergroup, then the consensus call of each bucket on its
+    device; returns the buckets, their consensus downloaded, and the
+    templates."""
     TB = opts.templates_per_batch
     buckets: List[_Bucket] = []
     tpls: List[_Tpl] = []
     for bi in range(0, len(sg_ids), TB):
-        b = _Bucket(store, sg_ids[bi:bi + TB], TB, opts.max_delta, engine.device)
+        b = _Bucket(store, sg_ids[bi:bi + TB], TB, opts.max_delta,
+                    engines[len(buckets) % len(engines)].device)
         buckets.append(b)
         for row in range(b.n_real):
             tid = int(b.ids[row])
             tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
                              groups[tid]))
     t0 = time.perf_counter()
-    _run_waves(engine, cands, buckets, tpls, opts, _SelState(tpls), id_map)
+    _run_waves(engines, cands, buckets, tpls, opts, _SelState(tpls), id_map)
     t1 = time.perf_counter()
     for b in buckets:
         w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]

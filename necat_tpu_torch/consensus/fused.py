@@ -246,7 +246,7 @@ class FusedChunk:
         self.desc_dev = desc_dev
 
 
-def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
+def dispatch_wave(engines, *, qids, qdir, qsize, tg_base, tsize_full, aq,
                   at_abs, rows, groups, cutoffs: dict, tensors: dict,
                   W: int, insb_words: int, min_align_size: int,
                   mapping_ratio: float, allow_fullcov: bool,
@@ -255,7 +255,10 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
                   rescue_defer: bool = False, cols_guard: bool = False,
                   good_end_margin: int = 200,
                   tail_match: int = TAIL_MATCH):
-    """Run one wave of pairs as chunks of `engine` (an ExtendEngine).
+    """Run one wave of pairs as chunks of `engines`, a list of ExtendEngines,
+    one per device: the chunks of group (bucket) g run on engines[g mod
+    len(engines)], where that bucket's tensors live
+    (necat_tpu/consensus/fused.py:313-345).
 
     cutoffs: group -> f32[TB+1] device cutoffs; tensors: group -> (weights,
     coverage), updated in place. With ibufs (round 0) only the ident pass
@@ -272,24 +275,25 @@ def dispatch_wave(engine, *, qids, qdir, qsize, tg_base, tsize_full, aq,
                  slot=(slots if slots is not None else zeros),
                  qe=(qend_cand if qend_cand is not None else zeros),
                  nc0=(nc0 if nc0 is not None else zeros))
-    planned = engine.plan(qids, qdir, qsize, tg_base, tsize_full, aq, at_abs, W,
+    planned = engines[0].plan(qids, qdir, qsize, tg_base, tsize_full, aq, at_abs, W,
                           groups=groups, extra_cols=extra)
     chunks = []
     for p in planned:
         desc = p["desc"]
         desc[:p["n_real"], _C["ws"]] = p["ws"]     # this chunk's window starts
         g = p["group"]
-        desc_dev = torch.from_numpy(desc).to(engine.device)
+        eng = engines[g % len(engines)]
+        desc_dev = torch.from_numpy(desc).to(eng.device)
         bufs = None
         if ibufs is not None:
             stats, bufs = ident_pass(
-                engine.qdev, engine.sdev, desc_dev, ibufs[g],
+                eng.qdev, eng.sdev, desc_dev, ibufs[g],
                 min_align_size=min_align_size, good_end_margin=good_end_margin,
                 W=W, L=p["L"], cols_guard=cols_guard, tail_match=tail_match)
         else:
             wts, cov = tensors[g]
             stats = extend_scatter(
-                engine.qdev, engine.sdev, desc_dev, cutoffs[g], wts, cov,
+                eng.qdev, eng.sdev, desc_dev, cutoffs[g], wts, cov,
                 min_align_size=min_align_size, mapping_ratio=mapping_ratio,
                 allow_fullcov=allow_fullcov, W=W, L=p["L"],
                 rescue_defer=rescue_defer, cols_guard=cols_guard,

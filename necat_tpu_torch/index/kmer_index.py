@@ -1,22 +1,30 @@
 """k-mer lookup table of one subject volume: (hash, position) pairs sorted by
 hash, a top-bits bucket directory and per-entry run ends, on the device.
 
-Counterpart of necat_tpu/index/kmer_index.py. The index is built on the host
-by the native radix sort (necat_tpu_torch/native.py; _build_numpy is its
-plain NumPy version, which the tests hold it against), then moved to the
-device; index_from_numpy takes index arrays as they are, so that the tests
-can hand both packages one index. k-mers occurring more than occ_cutoff times
-are disabled at query time (lookup_table.c:14-57 kmer_cnt_cutoff).
+Counterpart of necat_tpu/index/kmer_index.py. build_index picks the build
+as the JAX package's build_index does: on the card (build_on_device: torch
+ops over the 2-bit packed words, one stable torch.sort) for a volume of at
+most shapes.DEVICE_INDEX_MAX_BASES bases, otherwise on the host by the
+native radix sort (necat_tpu_torch/native.py; _build_numpy is its plain
+NumPy version, which the tests hold both builds against), then moved to the
+device. index_from_numpy takes index arrays as they are, so that the tests
+can hand both packages one index. k-mers occurring more than occ_cutoff
+times are disabled at query time (lookup_table.c:14-57 kmer_cnt_cutoff).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from necat_tpu_torch import native
+from necat_tpu_torch.io.devstore import DeviceReadStore
+from necat_tpu_torch.io.readstore import ReadStore
+from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_device
 
 
@@ -45,6 +53,35 @@ class KmerIndex:
                                 run_end=_run_ends(sh),
                                 n_search_steps=_search_steps(bucket_starts),
                                 device=device)
+
+    @classmethod
+    def build_on_device(cls, store, *, device, k: int = 15, occ_cutoff: int = 500,
+                        n_bucket_bits: int = 22) -> "KmerIndex":
+        """The same index as build, built with torch ops on `device` from the 2-bit
+        packed words: `store` is a DeviceReadStore on `device` (a slice of
+        one indexes its reads, positions from its first base) or a
+        ReadStore, whose words are packed and uploaded. The arrays equal
+        the host build's, array for array (only the valid k-mers: the JAX
+        version's pow2 padding serves XLA's shared executables, which
+        PyTorch does not need); n_search_steps takes one host read of the
+        largest bucket (necat_tpu/index/kmer_index.py:143-184)."""
+        if k > 15:
+            raise ValueError("k must fit 30 bits (int32 hashes)")
+        n_bucket_bits = min(n_bucket_bits, 2 * k)
+        dev = resolve_device(device)
+        if isinstance(store, ReadStore):
+            store = DeviceReadStore(store, dev)
+        elif not isinstance(store, DeviceReadStore) or store.device != dev:
+            raise ValueError(f"build_on_device on {dev} takes a ReadStore or a "
+                             f"DeviceReadStore on {dev}")
+        base_lo = int(store.offsets[0])
+        ends = torch.as_tensor(store.offsets[1:] - base_lo, device=dev)
+        sh, sp, bucket_starts, run_end = _build_device(
+            store.words, base_lo, int(store.offsets[-1]) - base_lo, ends, k, n_bucket_bits)
+        largest = int(torch.diff(bucket_starts).max())
+        return cls(k=k, occ_cutoff=occ_cutoff, n_bucket_bits=n_bucket_bits,
+                   sorted_hashes=sh, sorted_positions=sp, bucket_starts=bucket_starts,
+                   run_end=run_end, n_search_steps=_steps_for(largest))
 
     def lookup_ranges(self, qh: torch.Tensor):
         """(start, count) in the sorted lists for each query hash; counts above
@@ -82,6 +119,75 @@ def index_from_numpy(*, k, occ_cutoff, n_bucket_bits, sorted_hashes,
                      n_search_steps=int(n_search_steps))
 
 
+# seconds of each k-mer index build of build_index, in order (one per
+# subject volume or shard), for the callers' reports; never cleared here
+index_build_s: List[float] = []
+
+
+def build_index(store: ReadStore, *, device, k: int, occ_cutoff: int,
+                n_bucket_bits: int = 22,
+                packed: Optional[DeviceReadStore] = None) -> KmerIndex:
+    """The index of store's reads on `device`, built where the JAX package's
+    build_index builds it (necat_tpu/overlap/overlapper.py:33-46): on the
+    card (build_on_device) when `device` is CUDA and the store holds at most
+    shapes.DEVICE_INDEX_MAX_BASES bases, otherwise on the host by the native
+    radix sort, then uploaded. packed: the store's reads already on `device`
+    (a DeviceReadStore, or a slice of one), hashed instead of uploading them.
+    Appends the build's seconds to index_build_s; a device build's clock
+    stops after a synchronize."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda" and store.total_bases <= shapes.DEVICE_INDEX_MAX_BASES:
+        index = KmerIndex.build_on_device(store if packed is None else packed,
+                                          device=dev, k=k, occ_cutoff=occ_cutoff,
+                                          n_bucket_bits=n_bucket_bits)
+        torch.cuda.synchronize(dev)
+    else:
+        index = KmerIndex.build(store.bases, store.offsets, device=dev, k=k,
+                                occ_cutoff=occ_cutoff, n_bucket_bits=n_bucket_bits)
+    index_build_s.append(time.perf_counter() - t0)
+    return index
+
+
+def _build_device(words, base_lo: int, total: int, ends, k: int, n_bucket_bits: int):
+    """(sorted_hashes, sorted_positions, bucket_starts, run_end), int32 on
+    words' device, of the bases [base_lo, base_lo + total) of the packed
+    words (16 a word, base 0 in the high bits) whose reads end at `ends`
+    (relative to base_lo): _build_numpy's arrays, from torch ops."""
+    dev = words.device
+    i32 = torch.int32
+    n = total - k + 1
+    nb = 1 << n_bucket_bits
+    if n <= 0:
+        z = torch.zeros(0, dtype=i32, device=dev)
+        return z, z, torch.zeros(nb + 1, dtype=i32, device=dev), z
+    w0 = base_lo >> 4
+    shifts = 30 - 2 * torch.arange(16, dtype=i32, device=dev)
+    # words hold uint32 bit patterns as int32: >> sign-extends, & 3 drops it
+    bases = ((words[w0:(base_lo + total + 15) >> 4, None] >> shifts) & 3).to(torch.uint8)
+    bases = bases.reshape(-1)[base_lo - 16 * w0:base_lo - 16 * w0 + total]
+    h = torch.zeros(n, dtype=i32, device=dev)
+    for j in range(k):
+        h.bitwise_left_shift_(2).bitwise_or_(bases[j:j + n])
+    # k-mers spanning a read end start at end-k+1 .. end-1 of some read (a
+    # mark may fall into the read before a short one, where it is invalid too)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    bad = (ends[None, :] - torch.arange(1, k, device=dev)[:, None]).reshape(-1)
+    valid[bad[(bad >= 0) & (bad < n)]] = False
+    pos = torch.nonzero(valid)[:, 0]
+    del valid, bases
+    # stable: positions ascend within a hash, as in the native LSD radix sort
+    sh, order = torch.sort(h[pos], stable=True)
+    del h
+    sp = pos[order].to(i32)
+    del pos, order
+    bucket_starts = torch.searchsorted(
+        sh >> (2 * k - n_bucket_bits), torch.arange(nb + 1, dtype=i32, device=dev)).to(i32)
+    _, counts = torch.unique_consecutive(sh, return_counts=True)
+    run_end = torch.repeat_interleave(torch.cumsum(counts, 0), counts).to(i32)
+    return sh, sp, bucket_starts, run_end
+
+
 def _build_numpy(bases, offsets, k, n_bucket_bits):
     """Plain NumPy version of the native build: stable sort by hash, so
     positions ascend within a hash."""
@@ -111,10 +217,15 @@ def _run_ends(sh: np.ndarray) -> np.ndarray:
 
 
 def _search_steps(bucket_starts) -> int:
+    """_steps_for the largest bucket of a host directory."""
+    counts = np.diff(np.asarray(bucket_starts))
+    return _steps_for(int(counts.max()) if len(counts) else 1)
+
+
+def _steps_for(largest_bucket: int) -> int:
     """ceil(log2(largest bucket)) + 1, rounded up to {8, 12, 16, 24, 32} as
     the JAX package rounds it."""
-    counts = np.diff(np.asarray(bucket_starts))
-    steps = int(np.ceil(np.log2(max(2, int(counts.max()) if len(counts) else 1)))) + 1
+    steps = int(np.ceil(np.log2(max(2, largest_bucket)))) + 1
     return next((r for r in (8, 12, 16, 24, 32) if steps <= r), 32)
 
 

@@ -8,6 +8,8 @@ length, reverse-complement) row descriptors.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -18,7 +20,8 @@ from necat_tpu_torch.utils.device import resolve_device
 
 class DeviceReadStore:
     """words: device int32[NW] (the uint32 bit patterns); offsets: HOST
-    int64[n_reads + 1], since row descriptors are built on the host."""
+    int64[n_reads + 1], since row descriptors are built on the host
+    (offsets[0] is 0 but in a slice); total_bases bounds the words."""
 
     def __init__(self, store: ReadStore, device):
         if not isinstance(store, ReadStore):
@@ -32,6 +35,14 @@ class DeviceReadStore:
         self.words = torch.from_numpy(words.copy()).to(self.device)
         self.total_bases = store.total_bases
         self.offsets = store.offsets.astype(np.int64)
+
+    def slice(self, lo: int, hi: int) -> "DeviceReadStore":
+        """Reads lo..hi-1 as a store of their own that shares these words on
+        the device: its offsets stay offsets into the words (offsets[0] is
+        read lo's first base), so nothing is packed or uploaded again."""
+        view = copy.copy(self)
+        view.offsets = self.offsets[lo:hi + 1]
+        return view
 
     def gather(self, gstart, glen, rc, L: int) -> torch.Tensor:
         """uint8[P, L]: row p = bases[gstart_p : gstart_p + glen_p],

@@ -95,6 +95,13 @@ class ReadStore:
     def to_fasta(self, path: str | os.PathLike) -> None:
         seqio.write_fasta(path, self.names, list(self))
 
+    def slice(self, lo: int, hi: int) -> "ReadStore":
+        """Reads lo..hi-1 as a store of their own (a subject volume or
+        shard), its bases a view of this store's."""
+        off = self.offsets
+        return ReadStore(bases=self.bases[off[lo]:off[hi]], offsets=off[lo:hi + 1] - off[lo],
+                         names=self.names[lo:hi])
+
     def subset(self, idx: np.ndarray) -> "ReadStore":
         """Gather a sub-store in one vectorised pass."""
         idx = np.asarray(idx, dtype=np.int64)

@@ -1,14 +1,19 @@
-"""Read sets -> candidates -> extended M4 overlaps, on one device
+"""Read sets -> candidates -> extended M4 overlaps, on one device or several
 (counterpart of necat_tpu/overlap/overlapper.py: find_all_candidates,
 candidates_by_volumes, extend_candidates with its long-indel rescue
 ladder, which the JAX package's callers all leave on at its default scales,
-overlap_all_vs_all and map_reads_to_reference)."""
+overlap_all_vs_all and map_reads_to_reference).
+
+`device` is one device, a list of them or a comma-separated string
+(utils/device.resolve_devices). With several, the subject's k-mer index is
+split into a read range per device (parallel/mesh.py) and the extension's
+chunks go round-robin over the devices; the results equal one device's,
+field for field and in order."""
 
 from __future__ import annotations
 
-import time
 from collections import Counter
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,14 +21,18 @@ import torch
 from necat_tpu_torch.align.engine import (ExtendEngine, collect_stats, new_stats,
                                           rescue_widths)
 from necat_tpu_torch.index.kmer_index import KmerIndex
+# the seconds of each k-mer index build (kmer_index.build_index: one per
+# subject volume or shard), which the stages' reports read here
+from necat_tpu_torch.index.kmer_index import index_build_s  # noqa: F401
 from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.io.readstore import ReadStore
-from necat_tpu_torch.overlap.candidates import (Candidates, candidates_forward,
-                                                stats_to_candidates, top_n_per_query)
+from necat_tpu_torch.overlap.candidates import (Candidates, stats_to_candidates,
+                                                top_n_per_query)
 from necat_tpu_torch.overlap.m4 import M4Records
 from necat_tpu_torch.overlap.options import MapOptions
+from necat_tpu_torch.parallel.mesh import Shard, ShardedIndex, device_threads, shard_stats
 from necat_tpu_torch.utils import shapes
-from necat_tpu_torch.utils.device import resolve_device
+from necat_tpu_torch.utils.device import resolve_devices
 
 
 def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
@@ -31,7 +40,8 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
                         index: Optional[KmerIndex] = None, subject_read_start: int = 0,
                         query_ids: Optional[np.ndarray] = None) -> Candidates:
     """Candidates of qstore reads against sstore (one subject volume), on
-    `device`.
+    `device` (several: the subject split into a shard per device, its
+    ShardedIndex; `index`, an index built by the caller, serves one device).
 
     pairwise=True means both stores share one id space: each overlap is
     found once, from the read positioned later (hits at subject positions
@@ -41,71 +51,75 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
     the queries to those global ids. Queries run in batches of
     query_batch_size in ascending length order, both strands per batch; the
     best opts.ncan candidates per query are kept (pm_worker.c:163-186)."""
-    cands, _ = _search(qstore, sstore, opts, pairwise, resolve_device(device),
+    cands, _ = _search(qstore, sstore, opts, pairwise, resolve_devices(device),
                        query_batch_size, index, subject_read_start, query_ids)
     return top_n_per_query(cands, opts.ncan)
 
 
-# seconds of each k-mer index build of find_all_candidates and
-# candidates_by_volumes, in order (one per subject volume), for the callers'
-# reports; never cleared here
-index_build_s: List[float] = []
-
-
-def _build_index(sstore: ReadStore, opts: MapOptions, dev) -> KmerIndex:
-    t0 = time.perf_counter()
-    index = KmerIndex.build(sstore.bases, sstore.offsets, device=dev,
-                            k=opts.kmer_size, occ_cutoff=opts.occ_cutoff)
-    index_build_s.append(time.perf_counter() - t0)
-    return index
-
-
-def _search(qstore, sstore, opts, pairwise, dev, query_batch_size, index,
-            subject_read_start, query_ids, qdev=None):
+def _search(qstore, sstore, opts, pairwise, devs, query_batch_size, index,
+            subject_read_start, query_ids, qdevs=None, packed=None):
     """find_all_candidates before its top-n cut: (candidates, the chain of
-    each). A query store at or past shapes.DEVICE_STORE_MAX_BASES is read
-    into batches on the host and uploaded, unless qdev is given."""
+    each), in the order of the search on one device (query batch, strand,
+    chain, query, subject). qdevs: qstore on each device, made here unless
+    qstore is at or past shapes.DEVICE_STORE_MAX_BASES (its batches are then
+    read on the host and uploaded). packed: sstore's reads on each device,
+    for the index build (qdevs when sstore is qstore)."""
     if not isinstance(opts, MapOptions):
         raise TypeError(f"find_all_candidates takes necat_tpu_torch's MapOptions, not "
                         f"{type(opts).__module__}.{type(opts).__name__}")
-    if index is None:
-        index = _build_index(sstore, opts, dev)
-    if qdev is None and qstore.total_bases < shapes.DEVICE_STORE_MAX_BASES:
-        qdev = DeviceReadStore(qstore, dev)
-    sub_offsets = torch.as_tensor(sstore.offsets.astype(np.int64), device=dev)
-    sub_sizes = sstore.lengths.astype(np.int32)
+    if qdevs is None and qstore.total_bases < shapes.DEVICE_STORE_MAX_BASES:
+        qdevs = [DeviceReadStore(qstore, d) for d in devs]
+    if packed is None and sstore is qstore:
+        packed = qdevs
+    if index is not None:
+        if len(devs) != 1:
+            raise ValueError("a k-mer index built by the caller serves one device")
+        shards = [Shard.of(sstore, 0, sstore.n_reads, 0, devs[0], index)]
+    else:
+        shards = ShardedIndex(devs, sstore, opts.kmer_size, opts.occ_cutoff,
+                              n_bucket_bits=22 if len(devs) == 1 else 14,
+                              packed=packed).shards
     ns = sstore.n_reads
     int32_max = np.iinfo(np.int32).max
     all_q = np.arange(qstore.n_reads) if query_ids is None else np.asarray(query_ids)
     order = all_q[np.argsort(qstore.lengths[all_q], kind="stable")]
     parts, chains = [], []
-    for bs in range(0, len(order), query_batch_size):
-        qidx = order[bs:bs + query_batch_size]
-        pad = shapes.length_tier(int(qstore.lengths[qidx].max()))
-        lens = qstore.lengths[qidx].astype(np.int32)
-        limit = np.full(len(qidx), int32_max, np.int64)
-        if pairwise:
-            # a query outside the subject volume has no limit there
-            # (necat_tpu/overlap/candidates.py:292-304)
-            local = qidx - subject_read_start
-            in_vol = (local >= 0) & (local < ns)
-            limit[in_vol] = sstore.offsets[local[in_vol]]
-        soff_limit = torch.as_tensor(limit, device=dev)
-        lens_dev = torch.as_tensor(lens, device=dev)
-        for qdir in (0, 1):
-            if qdev is not None:
-                batch = qdev.read_rows(qidx, np.full(len(qidx), bool(qdir)), pad)
-            else:
-                batch = torch.from_numpy(qstore.padded_batch(
-                    qidx, pad_to=pad, multiple=1, rc=bool(qdir))[0]).to(dev)
-            st = candidates_forward(index, sub_offsets, batch, lens_dev,
-                                    soff_limit, opts).cpu().numpy()
-            # the stats hold chain 0 of every pair, then chain 1, ...
-            chain = np.arange(st.shape[1]) // max(st.shape[1] // opts.n_chains_per_pair, 1)
-            kept, c = stats_to_candidates(st, qidx.astype(np.int32), lens, qdir, sub_sizes,
-                                          subject_read_start, opts)
-            parts.append(c)
-            chains.append(chain[kept])
+    with device_threads(shards) as pool:
+        for bs in range(0, len(order) if shards else 0, query_batch_size):
+            qidx = order[bs:bs + query_batch_size]
+            pad = shapes.length_tier(int(qstore.lengths[qidx].max()))
+            lens = qstore.lengths[qidx].astype(np.int32)
+            limit = np.full(len(qidx), int32_max, np.int64)
+            if pairwise:
+                # a query outside the subject volume has no limit there
+                # (necat_tpu/overlap/candidates.py:292-304)
+                local = qidx - subject_read_start
+                in_vol = (local >= 0) & (local < ns)
+                limit[in_vol] = sstore.offsets[local[in_vol]]
+            for qdir in (0, 1):
+                rc = np.full(len(qidx), bool(qdir))
+                if qdevs is not None:
+                    batches = [qdevs[sh.slot].read_rows(qidx, rc, pad) for sh in shards]
+                else:
+                    host = torch.from_numpy(qstore.padded_batch(
+                        qidx, pad_to=pad, multiple=1, rc=bool(qdir))[0])
+                    batches = [host.to(sh.device) for sh in shards]
+                got = []
+                for sh, st in zip(shards, shard_stats(shards, batches, lens, limit, opts, pool)):
+                    # the stats hold chain 0 of every pair, then chain 1, ...
+                    chain = np.arange(st.shape[1]) // max(st.shape[1] // opts.n_chains_per_pair, 1)
+                    kept, c = stats_to_candidates(st, qidx.astype(np.int32), lens, qdir, sh.sizes,
+                                                  subject_read_start + sh.lo, opts)
+                    got.append((c, chain[kept], st[0][kept]))
+                c = Candidates.concat([g[0] for g in got])
+                chain = np.concatenate([g[1] for g in got])
+                if len(got) > 1:
+                    # the shards' union in the one-device order: chain, then
+                    # query row, then subject (group_pairs' sort)
+                    o = np.lexsort((c.sid, np.concatenate([g[2] for g in got]), chain))
+                    c, chain = c.take(o), chain[o]
+                parts.append(c)
+                chains.append(chain)
     chain = np.concatenate(chains) if chains else np.zeros(0, np.int64)
     return Candidates.concat(parts), chain
 
@@ -114,24 +128,25 @@ def candidates_by_volumes(store: ReadStore, opts: MapOptions, vol_size: int, *,
                           device="cuda", query_batch_size: int = 256) -> Candidates:
     """Pairwise candidates with the subject side tiled into <= vol_size-base
     volumes (oc2mkdb + per-volume oc2pmov, pm_worker.c:283-335), on
-    `device`: one k-mer index at a time, each built from its volume's own
-    bases and offsets, searched by every read from the volume's first read
-    on (the pairwise limit covers the volume's own reads). The union holds
-    exactly the untiled candidates; it is put in the order the untiled search
-    emits them (query batch, strand, chain, query, subject) before the top-n
-    cut, so that every later stage sees the same rows in the same order (the
-    JAX package concatenates the volumes' top-n sets, the same set in
-    another order)."""
-    dev = resolve_device(device)
-    qdev = (DeviceReadStore(store, dev)
-            if store.total_bases < shapes.DEVICE_STORE_MAX_BASES else None)
+    `device` (several: volume v on the v-th mod their count): one k-mer
+    index at a time, each of its volume's own reads (hashed from the
+    device's packed store), searched by every read from the volume's first
+    read on (the pairwise limit covers the volume's own reads). The union
+    holds exactly the untiled candidates; it is put in the order the untiled
+    search emits them (query batch, strand, chain, query, subject) before
+    the top-n cut, so that every later stage sees the same rows in the same
+    order (the JAX package concatenates the volumes' top-n sets, the same
+    set in another order)."""
+    devs = resolve_devices(device)
+    qdevs = ([DeviceReadStore(store, d) for d in devs]
+             if store.total_bases < shapes.DEVICE_STORE_MAX_BASES else None)
     parts, chains = [], []
-    for slo, shi in store.volumes(vol_size):
-        off = store.offsets
-        svol = ReadStore(bases=store.bases[off[slo]:off[shi]],
-                         offsets=off[slo:shi + 1] - off[slo], names=store.names[slo:shi])
-        c, chain = _search(store, svol, opts, True, dev, query_batch_size, None, slo,
-                           np.arange(slo, store.n_reads), qdev=qdev)
+    for v, (slo, shi) in enumerate(store.volumes(vol_size)):
+        s = v % len(devs)
+        c, chain = _search(store, store.slice(slo, shi), opts, True, [devs[s]],
+                           query_batch_size, None, slo, np.arange(slo, store.n_reads),
+                           qdevs=None if qdevs is None else [qdevs[s]],
+                           packed=None if qdevs is None else [qdevs[s].slice(slo, shi)])
         parts.append(c)
         chains.append(chain)
     cands = Candidates.concat(parts)
@@ -201,7 +216,7 @@ def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *
                       device="cuda", min_align_size: int = 400, min_ident: float = 0.0,
                       band_width: int = 128) -> M4Records:
     """Banded-extend candidates into M4 records (end points and identity), on
-    `device`.
+    `device` (several: the chunks round-robin over them, ExtendEngine).
 
     Pairs whose alignment stopped > 200 bp short of the chain-predicted query
     range are extended again with doubled bands (band_width * 4, then x2 each
@@ -209,12 +224,12 @@ def extend_candidates(cands: Candidates, qstore: ReadStore, sstore: ReadStore, *
     stand-in for the reference's DALIGNER rescue (consensus_aux.c:123-215).
     A rung's result is kept only where it aligned at least as many columns
     as the best so far (consensus_aux.c:203-213)."""
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
     n = len(cands)
     out = new_stats(n)
-    qdev = DeviceReadStore(qstore, dev)
-    sdev = qdev if sstore is qstore else DeviceReadStore(sstore, dev)
-    engine = ExtendEngine(qdev, sdev)
+    qdevs = [DeviceReadStore(qstore, d) for d in devs]
+    sdevs = qdevs if sstore is qstore else [DeviceReadStore(sstore, d) for d in devs]
+    engine = ExtendEngine(qdevs, sdevs)
     _extend_subset(cands, engine, np.arange(n), band_width, out)
     bad = rescue_hangs(cands, np.arange(n), out["qoff"], out["qend"])
     for Wx in rescue_widths(band_width, 4, 32):

@@ -1,5 +1,6 @@
 """Pipeline stages with resume (counterpart of necat_tpu/pipeline/stages.py:
-correct, trim, assemble, bridge and polish, on one device per process).
+correct, trim, assemble, bridge and polish, on the devices each process is
+given: one, or a list that the entry points share their work over).
 
 Each stage writes its outputs and a `<name>.done.json` manifest (input
 fingerprints and the parameters it ran with); a stage runs again only when
@@ -41,6 +42,7 @@ from necat_tpu_torch.polish.polish import polish_contigs
 from necat_tpu_torch.trim.accurate import trim_reads_accurate
 from necat_tpu_torch.trim.lcr import TrimOptions, trim_reads
 from necat_tpu_torch.utils import shapes
+from necat_tpu_torch.utils.device import resolve_devices
 from necat_tpu_torch.utils.logging import logger
 
 
@@ -54,10 +56,10 @@ def _fingerprint(paths: List[str]) -> str:
 
 def _stage(workdir: str, name: str, ifiles: List[str], ofiles: List[str],
            params: dict, fn: Callable[[], Optional[dict]],
-           coordinator_only: bool = False) -> bool:
+           coordinator_only: bool = False, device=None) -> bool:
     """Run fn unless its outputs are up to date; True if it ran. The manifest
     is written only after fn returns, with the fields of the dict fn returns
-    (if any) added.
+    (if any) added, and the devices the stage ran on (`device`, if given).
 
     In a multi-process run (parallel/launcher.py) a coordinator_only stage
     runs fn on process 0 while the others wait; a striped stage runs fn in
@@ -102,6 +104,8 @@ def _stage(workdir: str, name: str, ifiles: List[str], ofiles: List[str],
                     by_process.append(json.load(f))
                 os.remove(part)
             report = {**report, "by_process": by_process}
+        if device is not None:
+            report = {"devices": [str(d) for d in resolve_devices(device)], **report}
         with open(done_path, "w") as f:
             json.dump({"input_fp": fp, "params": pjson, "rc": 0,
                        "wall_s": round(time.time() - t0, 1), **report}, f)
@@ -306,7 +310,7 @@ class Project:
                   **self._opt_params("OVLP_SENSITIVE_OPTIONS", "CNS_SENSITIVE_OPTIONS",
                                      "OVLP_FAST_OPTIONS", "CNS_FAST_OPTIONS",
                                      "SMALL_MEMORY")}
-        _stage(wd, "correct", ifiles, [out], params, fn)
+        _stage(wd, "correct", ifiles, [out], params, fn, device=device)
         return out
 
     def _overlaps(self, reads: ReadStore, key: str, stage: str, device):
@@ -359,7 +363,7 @@ class Project:
 
         _stage(wd, "trim", [cns], [out],
                {"method": method, **self._opt_params("TRIM_OVLP_OPTIONS")}, fn,
-               coordinator_only=True)
+               coordinator_only=True, device=device)
         return out
 
     def run_assemble(self, *, device="cuda") -> str:
@@ -418,7 +422,8 @@ class Project:
 
         _stage(wd, "assemble", [trimmed_path], [out],
                self._opt_params("ASM_OVLP_OPTIONS", "FSA_OL_FILTER_OPTIONS",
-                                "FSA_ASSEMBLE_OPTIONS"), fn, coordinator_only=True)
+                                "FSA_ASSEMBLE_OPTIONS"), fn, coordinator_only=True,
+               device=device)
         return out
 
     def run_polish(self, ctg_path: str, tag: str, *, device="cuda") -> str:
@@ -467,7 +472,8 @@ class Project:
             return report
 
         _stage(wd, "polish", [ctg_path], [out],
-               self._opt_params("POLISH_OVLP_OPTIONS", "POLISH_CNS_OPTIONS"), fn)
+               self._opt_params("POLISH_OVLP_OPTIONS", "POLISH_CNS_OPTIONS"), fn,
+               device=device)
         return out
 
     def run_bridge(self, *, device="cuda") -> str:
@@ -510,7 +516,8 @@ class Project:
                                       sorted(overlapper.pairs_by_band.items())}}
 
         _stage(wd, "bridge", [ctg_path], [out],
-               self._opt_params("FSA_CTG_BRIDGE_OPTIONS"), fn, coordinator_only=True)
+               self._opt_params("FSA_CTG_BRIDGE_OPTIONS"), fn, coordinator_only=True,
+               device=device)
         return out
 
     def cleanup(self) -> None:

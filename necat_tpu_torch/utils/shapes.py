@@ -23,6 +23,11 @@ MAX_BAND = 4096
 # candidate queries gathered on the host. Read at call time, so that a test
 # can lower it.
 DEVICE_STORE_MAX_BASES = 1 << 31
+# bases of a subject volume whose k-mer index is built on the card
+# (KmerIndex.build_on_device) rather than by the native radix sort on the
+# host: the JAX package's gate (necat_tpu/overlap/overlapper.py:33). Read at
+# call time.
+DEVICE_INDEX_MAX_BASES = int(3e8)
 
 
 def length_tier(x: int) -> int:

@@ -91,8 +91,9 @@ def test_cutoff_from_idents_matches_jax():
 
 
 def test_correct_reads_refuses_unported_modes():
-    """fused=False and a list of devices stay refused; small_memory runs
-    (without candidates every read passes through uncorrected)."""
+    """fused=False stays refused, and so does a list of devices holding one
+    that is no CPU or CUDA device; small_memory runs (without candidates
+    every read passes through uncorrected)."""
     jrs, rs = small_store(G=6000, coverage=2)
     empty = Candidates.concat([])
     recs = correct_reads(rs, empty, CnsOptions(small_memory=True), device="cpu")
@@ -100,8 +101,8 @@ def test_correct_reads_refuses_unported_modes():
     assert not any(r.corrected for r in recs)
     with pytest.raises(NotImplementedError):
         correct_reads(rs, empty, CnsOptions(fused=False), device="cpu")
-    with pytest.raises(NotImplementedError):
-        correct_reads(rs, empty, CnsOptions(), device=["cpu", "cpu"])
+    with pytest.raises(ValueError):
+        correct_reads(rs, empty, CnsOptions(), device=["cpu", "meta"])
     for store, opts in ((jrs, CnsOptions()), (rs, as_jax(CnsOptions()))):
         with pytest.raises(TypeError):                 # the JAX package's objects
             correct_reads(store, empty, opts, device="cpu")

@@ -29,7 +29,7 @@ PORT_MODULES = sorted(m.name for m in pkgutil.walk_packages(necat_tpu_torch.__pa
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke as a module (its
     main does not run), loads no jax* and no necat_tpu module."""
-    assert len(PORT_MODULES) >= 30
+    assert len(PORT_MODULES) >= 30 and "necat_tpu_torch.parallel.mesh" in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -179,3 +179,49 @@ def test_cuda_correction_matches_cpu(cuda_device):
         assert (a.tid, a.left, a.right, a.corrected) == (b.tid, b.left, b.right,
                                                          b.corrected)
         np.testing.assert_array_equal(a.seq, b.seq)
+
+
+@pytest.mark.cuda
+def test_cuda_index_build_and_device_lists(cuda_device, monkeypatch):
+    """On the card: build_on_device equals the host build array for array;
+    find_all_candidates builds on the card up to DEVICE_INDEX_MAX_BASES and
+    on the host past it, with the same candidates; two shards on one card
+    (or one on each of two) give those candidates and the one-device
+    records in order."""
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.index import kmer_index
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.overlap.overlapper import find_all_candidates
+    from necat_tpu_torch.utils import shapes
+    genome = simulate.random_genome(12000, seed=33)
+    reads, *_ = simulate.simulate_reads(genome, coverage=6, mean_len=4000,
+                                        min_len=3000, max_len=5500, seed=34)
+    rs = ReadStore.from_seqs(reads)
+    dev_idx = kmer_index.KmerIndex.build_on_device(rs, device=cuda_device, k=13)
+    host_idx = kmer_index.KmerIndex.build(rs.bases, rs.offsets, device=cuda_device, k=13)
+    for f in ("sorted_hashes", "sorted_positions", "bucket_starts", "run_end"):
+        assert torch.equal(getattr(dev_idx, f), getattr(host_idx, f)), f
+    assert dev_idx.n_search_steps == host_idx.n_search_steps
+    mo = MapOptions(kmer_size=13)
+    calls = []
+    monkeypatch.setattr(kmer_index.KmerIndex, "build_on_device",
+                        lambda *a, **kw: calls.append(1) or dev_idx)
+    on_card = find_all_candidates(rs, rs, mo, pairwise=True, device=cuda_device)
+    monkeypatch.setattr(shapes, "DEVICE_INDEX_MAX_BASES", rs.total_bases - 1)
+    on_host = find_all_candidates(rs, rs, mo, pairwise=True, device=cuda_device)
+    monkeypatch.undo()
+    assert calls == [1]
+    n = max(torch.cuda.device_count(), 2)
+    devs = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+    sharded = find_all_candidates(rs, rs, mo, pairwise=True, device=devs)
+    for c in (on_host, sharded):
+        for f in ("qid", "sid", "qdir", "score", "qbeg", "qend", "sbeg", "send"):
+            np.testing.assert_array_equal(getattr(c, f), getattr(on_card, f))
+    co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32, buckets_per_supergroup=2)
+    call = Candidates.concat([on_card, on_card.swap_roles()])
+    one = correct_reads(rs, call, co, device=cuda_device)
+    two = correct_reads(rs, call, co, device=devs)
+    assert [(r.tid, r.left, r.right, r.corrected, r.seq.tobytes()) for r in one] == \
+        [(r.tid, r.left, r.right, r.corrected, r.seq.tobytes()) for r in two]
