@@ -115,7 +115,8 @@ Phases, each failing the run on error:
 Phases 17 and 18 run before 16, which empties this process's allocator
 for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
-it, and 3, as polish runs it) and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
+it, and 3, as polish runs it) and W=64 (so that K2 is held at every width
+of KERNEL_WIDTHS), and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
 small-memory, volumes, index, devices) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
@@ -267,9 +268,7 @@ def _max_abs_err(x, y) -> float:
 
 def _cuda_kernel(name: str, W: int) -> str:
     """The function in KERNEL_SOURCE that the wrapper launches at width W."""
-    if name == "diag_sub_matrix":
-        return "diag_sub_matrix_kernel"
-    base = "banded_forward" if name == "banded_forward" else "banded_backtrack"
+    base = "banded_backtrack" if name == "banded_backtrack_cols" else name
     return f"{base}_kernel<{W}>"
 
 
@@ -1376,6 +1375,7 @@ def main() -> int:
     build()
     kernels = check_kernels(dev)
     kernels.update(check_kernels(dev, W=POLISH_W, k3_words=(1, POLISH_WORDS)))
+    kernels.update(check_kernels(dev, W=64))
     check_slice(dev)
     launch_counts = {}
     main_res, main_inputs = main_path(dev, launch_counts)

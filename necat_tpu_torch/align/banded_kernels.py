@@ -276,10 +276,12 @@ def diag_sub_matrix(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
     _check(b, "b", torch.uint8, (PB, b.shape[1]))
     _check(la, "la", torch.int32, (PB,))
     _check(lb, "lb", torch.int32, (PB,))
-    if W % 4 or PB > 65535:
+    if W % 4 or MC * (W // 4) >= 1 << 31:
         raise ValueError(f"diag_sub_matrix: W={W} must be a multiple of 4 and "
-                         f"PB={PB} at most 65535")
+                         f"MC * W / 4 below 2^31 (MC={MC})")
     out = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
+    if out.numel() == 0:
+        return out
     _launch("necat_diag_sub_matrix", a.device, a.data_ptr(), L, b.data_ptr(),
             b.shape[1], la.data_ptr(), lb.data_ptr(), out.data_ptr(), PB, MC, W)
     launches_by_width[("diag_sub_matrix", W)] += 1

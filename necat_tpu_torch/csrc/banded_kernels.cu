@@ -52,7 +52,7 @@ __device__ __forceinline__ int band_centre(int W, int la, int lb) {
   return W / 2 - floor_div(la - lb, 2);
 }
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+__host__ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
@@ -132,35 +132,126 @@ __device__ __forceinline__ void cp_async_wait_one_pending() {
 
 // ---------------------------------------------------------------- K2: ENC
 // Replaces _diag_kernel / _diag_sub_matrix_pallas
-// (necat_tpu/align/pallas_banded.py). ENC[p, jc, l] compares query base
-// a[p, jc + l - ctr_p] with target base b[p, jc]. Since K1 computes ENC
-// itself, K2 is the standalone entry point only; the main path never runs it.
+// (necat_tpu/align/pallas_banded.py:146 / :172). ENC[p, jc, l] compares
+// query base a[p, jc + l - ctr_p] (PAD_BASE outside [0, La)) with target
+// base b[p, jc] (PAD_TARGET past Lb). Since K1 computes ENC itself, K2 is
+// the standalone entry point only; the main path never runs it.
+//
 // Bound: device-memory bandwidth. It writes PB*MC*W bytes and reads each
-// query byte about once from L1/L2, so the design is one thread per four
-// output bytes with 4-byte stores, neighbouring threads on neighbouring
-// words, one grid row (blockIdx.y) per pair.
-__global__ void diag_sub_matrix_kernel(const uint8_t* __restrict__ a, int La,
-                                       const uint8_t* __restrict__ b, int Lb,
-                                       const int* __restrict__ la_,
-                                       const int* __restrict__ lb_,
-                                       uint32_t* __restrict__ out, int MC, int W) {
-  const int p = blockIdx.y;
-  const int w4 = W / 4;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // word within the pair
-  if (idx >= MC * w4) return;
-  const int jc = idx / w4;
-  const int l0 = (idx - jc * w4) * 4;
-  const int ctr = band_centre(W, la_[p], lb_[p]);
-  const int tc = jc < Lb ? b[(size_t)p * Lb + jc] : PAD_TARGET;
-  const uint8_t* ap = a + (size_t)p * La;
-  uint32_t word = 0;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int src = jc + l0 + s - ctr;
-    const int aq = (src >= 0 && src < La) ? ap[src] : PAD_BASE;
-    word |= (uint32_t)((aq != tc) | ((aq & 3) << 1)) << (8 * s);
+// row once. Its first version (a thread per 4 output bytes: a run-time
+// division, the band centre, and five scalar loads with their bounds checks
+// per word) was bound by instructions issued: 23-25 % of the byte bound.
+// This design issues about a quarter of the instructions per output byte:
+//  - a block takes one pair (blockIdx.x, so PB is not capped at 65535) and a
+//    tile of K2_TILE_BYTES of output: TC whole columns of W lanes (lanes are
+//    tiled too only for a run-time W above K2_LANE_TILE); the pair's band
+//    centre, row pointers and padding are worked out once per tile;
+//  - the tile's query span a[jc0 + l_lo - ctr ...] (TC + LT bytes, PAD_BASE
+//    outside the row) and its TC target bases (PAD_TARGET past Lb) are staged
+//    into shared memory a word at a time: aligned 4-byte loads and a funnel
+//    shift, byte by byte only at the row's ends;
+//  - a thread builds NB lanes of one column (16 for the widths of
+//    KERNEL_WIDTHS, 4 for a run-time W) from NB/4 + 1 staged words
+//    funnel-shifted by 8 * (column % 4) bits; each word's ENC is K1's
+//    bytes_ne | (q & 0x03030303) << 1;
+//  - neighbouring threads build neighbouring NB bytes, so a warp's store is
+//    32 * NB contiguous bytes, and it is a streaming store (st.global.cs):
+//    the output is written once and is far larger than the L2.
+// Measured in one call (L = 8192, PB = pairs_per_chunk; H100 80GB HBM3,
+// 700.00 W; scripts/torch_kernel_ab.py): the first version 1.329 ms at
+// W = 128 and 2.63-2.66 ms at 256-4096, this one 0.384 ms (85 % of the
+// bound) and 0.68-0.74 ms (88-94 %). Tiles of 64-256 KB and 128 threads a
+// block moved it by < 1.5 %, plain stores were 1-4 % slower, 4 consecutive
+// columns a thread (one window, 4 shifts) 5 % slower at W = 64 and 128.
+constexpr int K2_THREADS = 256;
+constexpr int K2_TILE_BYTES = 1 << 17;   // output bytes a block builds per tile
+constexpr int K2_LANE_TILE = 4096;       // lanes per tile of a run-time W
+
+// Bytes q .. q+3 of a row of n bytes as a little-endian word, pad outside
+// [0, n): aligned 4-byte loads inside the row (the row need not be aligned).
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ row, int q,
+                                              int n, uint32_t pad) {
+  if (q >= 0 && q <= n - 4) {
+    const uintptr_t addr = (uintptr_t)(row + q);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(addr & ~(uintptr_t)3);
+    const uint32_t sh = 8 * (uint32_t)(addr & 3);
+    const uint32_t lo = __ldg(w);
+    return sh ? __funnelshift_r(lo, __ldg(w + 1), sh) : lo;   // w + 1 holds byte q + 3
   }
-  out[(size_t)p * MC * w4 + idx] = word;
+  uint32_t x = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    x |= (q + s >= 0 && q + s < n ? (uint32_t)row[q + s] : pad) << (8 * s);
+  return x;
+}
+
+// Lanes and columns of a K2 tile: all W lanes up to K2_LANE_TILE, and as
+// many columns (a multiple of 4, 4 to 2048) as fill K2_TILE_BYTES.
+__host__ __device__ __forceinline__ int k2_lane_tile(int W) {
+  return W < K2_LANE_TILE ? W : K2_LANE_TILE;
+}
+__host__ __device__ __forceinline__ int k2_tile_cols(int LT) {
+  return clampi((K2_TILE_BYTES / LT) & ~3, 4, 2048);
+}
+
+// WT: the band width, or 0 for a run-time W (W_rt). A tile is TC columns
+// from jc0 by LT lanes from l_lo.
+template <int WT>
+__global__ void __launch_bounds__(K2_THREADS)
+diag_sub_matrix_kernel(const uint8_t* __restrict__ a, int La, const uint8_t* __restrict__ b,
+                       int Lb, const int* __restrict__ la_, const int* __restrict__ lb_,
+                       uint8_t* __restrict__ out, int MC, int W_rt) {
+  constexpr int NB = WT > 0 ? 16 : 4;                    // lanes a thread builds
+  constexpr int NW = NB / 4 + 1;                         // shared words it reads
+  const int W = WT > 0 ? WT : W_rt;
+  const int LT = k2_lane_tile(W), TC = k2_tile_cols(LT);
+  extern __shared__ uint32_t k2_smem[];
+  uint32_t* tgt = k2_smem;                               // TC / 4 words
+  uint32_t* span = k2_smem + TC / 4;                     // (TC + LT) / 4 words
+  const int p = blockIdx.x;
+  const int ctr = band_centre(W, la_[p], lb_[p]);
+  const uint8_t* ap = a + (size_t)p * La;
+  const uint8_t* bp = b + (size_t)p * Lb;
+  const int n_lane_tiles = (W + LT - 1) / LT;
+  const int n_tiles = (MC + TC - 1) / TC * n_lane_tiles;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    const int jc0 = tile / n_lane_tiles * TC;
+    const int l_lo = tile % n_lane_tiles * LT;
+    const int lt = W - l_lo < LT ? W - l_lo : LT;        // this tile's lanes
+    const int nc = MC - jc0 < TC ? MC - jc0 : TC;        // this tile's columns
+    const int q0 = jc0 + l_lo - ctr;                     // query index of span byte 0
+    __syncthreads();                                     // the last tile's reads are done
+    for (int k = threadIdx.x; k < (TC + lt) / 4; k += K2_THREADS)
+      span[k] = load_word(ap, q0 + 4 * k, La, PAD_BASE);
+    for (int k = threadIdx.x; k < TC / 4; k += K2_THREADS)
+      tgt[k] = load_word(bp, jc0 + 4 * k, Lb, PAD_TARGET);
+    __syncthreads();
+    // item i: column i / G, lanes l_lo + NB*(i % G) ..; a warp's store covers
+    // 32 * NB contiguous bytes
+    const int G = lt / NB;
+    const int items = nc * G;
+    const uint8_t* tgtb = reinterpret_cast<const uint8_t*>(tgt);
+    for (int i = threadIdx.x; i < items; i += K2_THREADS) {
+      const int c = i / G, g = i - c * G;
+      const int w0 = (c >> 2) + g * (NB / 4);
+      const uint32_t sh = 8 * (c & 3);
+      uint32_t w[NW];
+#pragma unroll
+      for (int k = 0; k < NW; ++k) w[k] = span[w0 + k];
+      const uint32_t tc4 = tgtb[c] * 0x01010101u;
+      uint32_t e[NB / 4];
+#pragma unroll
+      for (int k = 0; k < NB / 4; ++k) {
+        const uint32_t q = __funnelshift_r(w[k], w[k + 1], sh);
+        e[k] = bytes_ne(q, tc4) | ((q & 0x03030303u) << 1);
+      }
+      uint8_t* op = out + ((size_t)p * MC + jc0 + c) * W + l_lo + NB * g;
+      if constexpr (NB == 16)
+        __stcs(reinterpret_cast<uint4*>(op), make_uint4(e[0], e[1], e[2], e[3]));
+      else
+        __stcs(reinterpret_cast<unsigned int*>(op), e[0]);
+    }
+  }
 }
 
 // ------------------------------------------------- K1 and K3: pair tiling
@@ -514,6 +605,8 @@ banded_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict_
   if (t == 0) lead[p] = clampi(cur - ctr, 0, la);
 }
 
+// Launch<W>::run for a width of KERNEL_WIDTHS; any other width runs
+// Launch<0> where the launcher has one, else is refused.
 template <template <int> class Launch, typename... Args>
 int dispatch_width(int W, Args... args) {
   switch (W) {
@@ -524,13 +617,32 @@ int dispatch_width(int W, Args... args) {
     case 1024: Launch<1024>::run(args...); break;
     case 2048: Launch<2048>::run(args...); break;
     case 4096: Launch<4096>::run(args...); break;
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if constexpr (Launch<0>::ANY_WIDTH) Launch<0>::run(args...);
+      else return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// K2: a block per (pair, tile); pairs on gridDim.x, tiles on gridDim.y (a
+// block walks tiles gridDim.y apart when there are more than 65535).
+template <int WT>
+struct DiagLaunch {
+  static constexpr bool ANY_WIDTH = true;
+  static void run(const uint8_t* a, int La, const uint8_t* b, int Lb, const int* la,
+                  const int* lb, uint8_t* out, int PB, int MC, int W, cudaStream_t s) {
+    const int LT = k2_lane_tile(W), TC = k2_tile_cols(LT);
+    const long long tiles = (long long)((MC + TC - 1) / TC) * ((W + LT - 1) / LT);
+    const dim3 grid(PB, (unsigned)(tiles < 65535 ? tiles : 65535));
+    const size_t smem = (size_t)(2 * TC + LT);               // targets and query span
+    diag_sub_matrix_kernel<WT><<<grid, K2_THREADS, smem, s>>>(a, La, b, Lb, la, lb, out,
+                                                               MC, W);
+  }
+};
+
 template <int W>
 struct ForwardLaunch {
+  static constexpr bool ANY_WIDTH = false;
   static void run(const uint8_t* a, int La, const uint8_t* b, int Lb, const int* la,
                   const int* lb, uint8_t* dirs, int* cost, int PB, int MC, cudaStream_t s) {
     using T = Tiling<W, K1_WIDE_MIN>;
@@ -541,6 +653,7 @@ struct ForwardLaunch {
 
 template <int W>
 struct BacktrackLaunch {
+  static constexpr bool ANY_WIDTH = false;
   static void run(const uint8_t* dirs, const int* la, const int* lb, int* cols,
                   int* insb, int* lead, int PB, int MC, int words, cudaStream_t s) {
     using T = Tiling<W, K3_WIDE_MIN>;
@@ -556,15 +669,13 @@ extern "C" {
 int necat_diag_sub_matrix(const void* a, int La, const void* b, int Lb,
                           const void* la, const void* lb, void* out, int PB,
                           int MC, int W, void* stream) {
-  // the word index within a pair is an int
-  if (W % 4 != 0 || PB > 65535 || (long long)MC * (W / 4) >= (1ll << 31))
+  // column and lane indices within a pair are ints
+  if (W % 4 != 0 || PB < 0 || MC < 0 || (long long)MC * (W / 4) >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const dim3 grid((MC * (W / 4) + threads - 1) / threads, PB);
-  diag_sub_matrix_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, La, (const uint8_t*)b, Lb, (const int*)la,
-      (const int*)lb, (uint32_t*)out, MC, W);
-  return (int)cudaGetLastError();
+  if ((long long)PB * MC * W == 0) return 0;
+  return dispatch_width<DiagLaunch>(W, (const uint8_t*)a, La, (const uint8_t*)b, Lb,
+                                    (const int*)la, (const int*)lb, (uint8_t*)out, PB, MC, W,
+                                    (cudaStream_t)stream);
 }
 
 int necat_banded_forward(const void* a, int La, const void* b, int Lb, const void* la,

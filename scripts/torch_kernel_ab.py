@@ -1,24 +1,26 @@
 #!/usr/bin/env python
 """Same-call A/B of necat_tpu_torch's banded kernels on one NVIDIA GPU.
 
-    python scripts/torch_kernel_ab.py --old DIR [--same TAG=DIR ...]
+    python scripts/torch_kernel_ab.py [--old DIR] [--same TAG=DIR ...]
                                       [--widths 128 512 ...] [--reps 10]
                                       [--out FILE]
 
-DIR holds another checkout's necat_tpu_torch/csrc (for example the parent
-commit, unpacked with `git archive`), whose K1 reads the ENC buffer its K2
-writes (necat_banded_forward(enc, la, lb, dirs, cost, PB, MC, W, stream)).
-This checkout's K1 takes the query and target rows, and so does each
---same checkout (another version of these entry points; to try another
-tiling, edit a copy of this checkout and pass it here). Every library is
-compiled with nvcc into build/ab/, all at once.
+--old DIR holds another checkout's necat_tpu_torch/csrc whose K1 reads the
+ENC buffer its K2 writes (necat_banded_forward(enc, la, lb, dirs, cost, PB,
+MC, W, stream), as the first versions of K1 did). This checkout's K1 takes
+the query and target rows, and so does each --same checkout (another
+version of these entry points: the parent commit unpacked with `git
+archive`, or a copy of this checkout with other tiling constants). Every
+library is compiled with nvcc into build/ab/, all at once.
 
 At each width: L = 8192, PB = pairs_per_chunk(8192, W), the pairs of
-chip_smoke.check_kernels (seed 2024). The outputs of every library must be
-identical (dirs, cost, cols, insb, lead); then each library's kernels are
-timed with CUDA events, `reps` launches each, in turns old, new, new, old
-(--same checkouts after new). Prints one JSON line per width and, with --out,
-writes them all to FILE.
+chip_smoke.check_kernels (seed 2024). Every library's outputs (K2's ENC, K1's
+dirs and cost, K3's cols, insb and lead) must be identical to the first
+library's (--old, else the first --same); then each library's K2, K1 and K3
+are timed with CUDA events, `reps` launches each, in turns first, the others
+(this checkout last), the others again, first: for example parent, new, new,
+parent. Prints one JSON line per width and, with --out, writes them all to
+FILE.
 """
 
 from __future__ import annotations
@@ -109,10 +111,10 @@ def kernels(name, lib, a, b, la, lb, W):
         k2()
         k1()
 
-    fns = {"K1": k2k1 if name == "old" else k1, "K3": k3}
+    fns = {"K2": k2, "K1": k2k1 if name == "old" else k1, "K3": k3}
     if name == "old":
-        fns.update(K2=k2, K1_alone=k1)
-    return fns, (dirs, cost, cols, insb, lead)
+        fns["K1_alone"] = k1
+    return fns, (enc, dirs, cost, cols, insb, lead)
 
 
 def time_ms(fn, reps):
@@ -128,7 +130,7 @@ def time_ms(fn, reps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True, help="checkout holding the old csrc")
+    ap.add_argument("--old", help="checkout whose K1 reads K2's ENC")
     ap.add_argument("--same", action="append", default=[],
                     help="TAG=DIR: a checkout with this checkout's entry points")
     ap.add_argument("--widths", type=int, nargs="+", default=[128, 512, 1024, 2048, 4096])
@@ -141,26 +143,30 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    here = os.path.join(REPO, "necat_tpu_torch", "csrc")
-    specs = {"old": os.path.join(args.old, "necat_tpu_torch", "csrc"), "new": here}
+    if not args.old and not args.same:
+        ap.error("give --old or --same: the checkout to compare with")
+    specs = {"old": args.old} if args.old else {}
     for tag_dir in args.same:
         tag, d = tag_dir.split("=", 1)
-        specs[tag] = os.path.join(d, "necat_tpu_torch", "csrc")
-    libs = build_all(specs)
+        specs[tag] = d
+    specs["new"] = REPO
+    libs = build_all({k: os.path.join(d, "necat_tpu_torch", "csrc") for k, d in specs.items()})
+    first = next(iter(libs))
     rows = []
     for W in args.widths:
         a, b, la, lb = kernel_pairs(dev, W)
         sets = {name: kernels(name, lib, a, b, la, lb, W) for name, lib in libs.items()}
         for fns, _ in sets.values():              # one run each, then compare
+            fns["K2"]()
             fns["K1"]()
             fns["K3"]()
         torch.cuda.synchronize()
-        ref = sets["old"][1]
+        ref = sets[first][1]
         for name, (_, outs) in sets.items():
-            for x, y in zip(outs, ref):
+            for what, x, y in zip(("enc", "dirs", "cost", "cols", "insb", "lead"), outs, ref):
                 if not torch.equal(x, y):
-                    raise AssertionError(f"W={W}: {name} differs from old")
-        order = ["old"] + [n for n in sets if n != "old"] * 2 + ["old"]
+                    raise AssertionError(f"W={W}: {name}'s {what} differs from {first}'s")
+        order = [first] + [n for n in sets if n != first] * 2 + [first]
         ms = {}
         for name in order:
             for k, fn in sets[name][0].items():

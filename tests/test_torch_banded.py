@@ -20,21 +20,60 @@ from torch_port_helpers import (band_pairs, both_stores, extension_batch,  # noq
 T = torch.from_numpy
 
 
-@pytest.mark.parametrize("W", [64, 128])
-def test_diag_sub_matrix_matches_pallas(W):
-    rng = np.random.default_rng(6)
-    PB, L = 16, 512
+def _diag_case(W, case, PB=16, L=512):
+    """K2 inputs: random bases 0..3 and lengths, the first four pairs with
+    la < lb at an odd difference ("mixed"); b narrower than the MC = L
+    columns, so that the last columns read PAD_TARGET ("short-target"); la
+    within 8 of L, so that lanes past the row read PAD_BASE on the right
+    ("long-query"); every pair with la < lb at an odd difference up to W/4,
+    so that the first columns read PAD_BASE on the left ("left-pad")."""
+    rng = np.random.default_rng(W + len(case))
     a = rng.integers(0, 4, (PB, L)).astype(np.uint8)
     b = rng.integers(0, 4, (PB, L)).astype(np.uint8)
     la = rng.integers(100, L, PB).astype(np.int32)
     lb = rng.integers(100, L, PB).astype(np.int32)
-    la[:4] = lb[:4] - np.array([1, 3, 5, 7])            # la < lb, odd difference
+    if case == "mixed":
+        la[:4] = lb[:4] - np.array([1, 3, 5, 7])
+    elif case == "short-target":
+        b = np.ascontiguousarray(b[:, :L - 3 * W // 2 - 5])
+        lb = np.minimum(lb, b.shape[1]).astype(np.int32)
+    elif case == "long-query":
+        la = rng.integers(L - 8, L + 1, PB).astype(np.int32)
+        lb = (la - rng.integers(0, W // 4 + 1, PB)).astype(np.int32)
+    elif case == "left-pad":
+        lb = rng.integers(W, L, PB).astype(np.int32)
+        la = (lb - (2 * rng.integers(0, W // 8, PB) + 1)).astype(np.int32)
+    return a, b, la, lb
+
+
+@pytest.mark.parametrize("W,case", [
+    pytest.param(64, "mixed", id="64"), pytest.param(128, "mixed", id="128"),
+    pytest.param(256, "mixed", id="256"),
+    pytest.param(100, "mixed", id="100"),                  # a W outside KERNEL_WIDTHS
+    pytest.param(128, "short-target", id="128-short-target"),
+    pytest.param(100, "short-target", id="100-short-target"),
+    pytest.param(64, "long-query", id="64-long-query"),
+    pytest.param(256, "left-pad", id="256-left-pad")])
+def test_diag_sub_matrix_matches_pallas(W, case):
+    """K2's plain version equals the JAX package's XLA ENC builder and its
+    Pallas K2 in interpret mode, byte for byte, MC = L = 512 columns."""
+    a, b, la, lb = _diag_case(W, case)
+    L = a.shape[1]
+    if case == "short-target":
+        assert b.shape[1] < L and (lb == b.shape[1]).any()
+    if case == "long-query":
+        assert (la >= L - 8).all() and (la == L).any()
+    if case in ("mixed", "left-pad"):
+        assert ((lb - la) % 2 == 1).sum() >= 4
     ja = [jnp.asarray(x) for x in (a, b, la, lb)]
     ref_xla = np.asarray(jpb._diag_sub_matrix(*ja, W, L))
     ref_pallas = np.asarray(jpb._diag_sub_matrix_pallas(*ja, W, L, 128, interpret=True))
     out = bk.diag_sub_matrix(T(a), T(b), T(la), T(lb), W, L).numpy()
     np.testing.assert_array_equal(out, ref_xla)
     np.testing.assert_array_equal(out, ref_pallas)
+    assert out.shape == (a.shape[0], L, W)
+    if case == "short-target":                  # PAD_TARGET matches no query byte
+        assert (out[:, b.shape[1]:] & 1).all()
 
 
 @pytest.mark.parametrize("W,clamp", [(64, True), (128, True), (128, False)])

@@ -140,6 +140,53 @@ def test_cuda_forward_reads_rows_as_k2(cuda_device, W):
     _check_kernels(cpu, [x.to(cuda_device) for x in cpu], W, 2, max_cols=L)
 
 
+def _diag_pairs(seed, PB, L, Lb, W):
+    """K2 inputs: random bytes (bases and a few other values), rows of L and
+    Lb bytes (not multiples of 4, so rows start unaligned), lengths with
+    |la - lb| <= W/4 and mostly odd differences: some pairs pad the query on
+    the left (la < lb), some on the right (la near L)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 6, (PB, L)).astype(np.uint8)
+    b = rng.integers(0, 6, (PB, Lb)).astype(np.uint8)
+    la = rng.integers(0, L + 1, PB)
+    la[: PB // 3] = rng.integers(L - 8, L + 1, PB // 3)
+    lb = np.clip(la + 2 * rng.integers(-(W // 8), W // 8 + 1, PB) + 1, 0, Lb)
+    return [torch.from_numpy(x) for x in (a, b, la.astype(np.int32), lb.astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024, 2048, 4096, 100, 4100])
+def test_cuda_diag_sub_matrix_matches_plain(cuda_device, W):
+    """K2 at every width of KERNEL_WIDTHS, and at W = 100 and 4100 (the
+    run-time-W kernel; 4100 lanes take two lane tiles) equals its plain
+    version byte for byte: 37 pairs, MC two column tiles and a few columns
+    more (not a multiple of the tile nor of 4), the last 3 columns past b's
+    width."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    MC = 2 * (1 << 17) // W + 6
+    cpu = _diag_pairs(W, 37, MC + 5, MC - 3, W)
+    before = bk.launches_by_width[("diag_sub_matrix", W)]
+    got = bk.diag_sub_matrix(*[x.to(cuda_device) for x in cpu], W, MC)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bk.diag_sub_matrix_ref(*cpu, W, MC))
+    assert bk.launches_by_width[("diag_sub_matrix", W)] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_diag_sub_matrix_many_pairs(cuda_device):
+    """K2 takes pairs on the grid's x dimension: 65 537 pairs (past 65 535)
+    of 16 columns at W = 64 equal the plain version; no pairs gives an empty
+    ENC."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    PB, MC, W = 65_537, 16, 64
+    cpu = _diag_pairs(5, PB, 37, 13, W)
+    got = bk.diag_sub_matrix(*[x.to(cuda_device) for x in cpu], W, MC)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bk.diag_sub_matrix_ref(*cpu, W, MC))
+    none = bk.diag_sub_matrix(*[x[:0].to(cuda_device) for x in cpu], W, MC)
+    assert none.shape == (0, MC, W)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_bad_inputs(cuda_device):
     from necat_tpu_torch.align import banded_kernels as bk
