@@ -112,13 +112,23 @@ Phases, each failing the run on error:
              its one-device M4 rows; (c) `cli correct --device <list>` in a
              fresh project from phase 8's config writes phase 8's cns_final
              (content); K1 and K3 must launch at 128 and K2 never.
-Phases 17 and 18 run before 16, which empties this process's allocator
+ 19. timing main's search and correction again with the host timing scopes
+             on (necat_tpu_torch/utils/logging.py, NECAT_TPU_TIMING's
+             report): records equal main's; prints the report, the
+             synchronised wall, the top-level scopes' sum and share of it
+             and the lane counters; then once more with
+             NECAT_TPU_SYNC_DISPATCH=1 (each dispatch waits for the card
+             in its *exec* scope): records equal again, the *exec* totals
+             beside that wall. Every cand.*, ext.* and cns.* scope of the
+             fused path must appear; K1 and K3 must launch at 128 and K2
+             never.
+Phases 17, 18 and 19 run before 16, which empties this process's allocator
 for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and W=64 (so that K2 is held at every width
 of KERNEL_WIDTHS), and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
-small-memory, volumes, index, devices) and read after it; phase 16's launches run in other
+small-memory, volumes, index, devices, timing) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
@@ -185,6 +195,19 @@ REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
 ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
+# phase 19: the timing scopes of main's path (the JAX package's names), and
+# those of them that no other scope holds, which PERF.md sums against the wall
+MAIN_SCOPES = ("cand.devstore_init", "cand.index_build", "cand.batch_total", "cand.read_rows",
+               "cand.dispatch_total", "cand.limits", "cand.dispatch", "cand.stats_sync",
+               "cand.topn", "ext.chunk_build", "ext.stats_sync", "ext.lanes",
+               "ext.real_lanes", "ext.cell_Mlanes", "cns.devstore_init", "cns.bucket_setup",
+               "cns.wave_build", "cns.extend_pairs_total", "cns.fused_dispatch",
+               "cns.fused_desc_up", "cns.fused_call", "cns.accept", "cns.call_consensus",
+               "cns.download", "cns.compact")
+TOP_LEVEL_SCOPES = ("cand.devstore_init", "cand.index_build", "cand.batch_total", "cand.topn",
+                    "cns.devstore_init", "cns.bucket_setup", "cns.wave_build",
+                    "cns.extend_pairs_total", "cns.accept", "cns.call_consensus",
+                    "cns.compact")
 # H100 SXM peaks: HBM3 bytes/s (NVIDIA H100 datasheet) and INT32 operations/s
 # (132 SMs x 64 INT32 lanes x 1.98 GHz, NVIDIA H100 white paper)
 PEAK_BYTES_S = 3.35e12
@@ -1363,6 +1386,71 @@ def check_devices(dev, launch_counts: dict, main_inputs, cfg_path: str, smi: str
           "phase 8's", flush=True)
 
 
+def check_timing(dev, launch_counts: dict, main_inputs, smi: str) -> None:
+    """Main's search and correction with the timing scopes on, then on with
+    NECAT_TPU_SYNC_DISPATCH: records equal main's both times; the report,
+    the wall, the top-level scopes' share of it and the *exec* totals."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.overlap.overlapper import find_all_candidates
+    from necat_tpu_torch.utils import logging as tlog
+    store, cands, _, want = main_inputs
+    res = {}
+    tlog.TIMING_ON = True
+    try:
+        for mode in ("timed", "sync"):
+            if mode == "sync":
+                os.environ["NECAT_TPU_SYNC_DISPATCH"] = "1"
+            torch.cuda.synchronize()
+            tlog.reset_timers()
+            bk.reset_launches()
+            t0 = time.perf_counter()
+            got = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
+            recs = correct_reads(store, Candidates.concat([got, got.swap_roles()]),
+                                 CnsOptions(), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            report = tlog.timing_report(ndigits=None)
+            launch_counts["timing" if mode == "timed" else "timing-sync"] = counts = _launches(bk)
+            for f in dataclasses.fields(cands):
+                if not np.array_equal(getattr(got, f.name), getattr(cands, f.name)):
+                    raise AssertionError(f"timing ({mode}): candidate field {f.name} differs "
+                                         "from main's")
+            _same_records(want, recs)
+            missing = [k for k in MAIN_SCOPES if k not in report]
+            execs = {k: v for k, v in report.items() if "exec" in k}
+            if mode == "sync" and ("cand.exec" not in execs or not any(
+                    k.startswith("cns.fused_exec_L") for k in execs)):
+                missing.append("cand.exec and cns.fused_exec_L*")
+            if missing or (mode == "timed" and execs):
+                raise AssertionError(f"timing ({mode}): scopes missing {missing}, "
+                                     f"*exec* {sorted(execs)}")
+            if (any(not counts["by_width"].get((k, 128)) for k in ON_PATH)
+                    or any(n for (k, _), n in counts["by_width"].items()
+                           if k == "diag_sub_matrix")):
+                raise AssertionError(f"timing ({mode}): K1 and K3 must launch at 128 and K2 "
+                                     f"not: {_by_width(counts)}")
+            top = sum(report[k][0] for k in TOP_LEVEL_SCOPES)
+            res[mode] = {"wall_s": wall, "top_level_s": top, "top_level_share": top / wall,
+                         "lanes": {k: report[k][0] for k in
+                                   ("ext.lanes", "ext.real_lanes", "ext.cell_Mlanes")},
+                         "report": report}
+            if mode == "sync":
+                res[mode]["exec_s"] = sum(v[0] for v in execs.values())
+                res[mode]["exec"] = execs
+    finally:
+        tlog.TIMING_ON = False
+        os.environ.pop("NECAT_TPU_SYNC_DISPATCH", None)
+        tlog.reset_timers()
+    print("timing " + json.dumps({**res, "card": smi}), flush=True)
+    print(f"timing: records equal main's with the scopes on and with the synchronised "
+          f"dispatch; top-level scopes {res['timed']['top_level_share']:.1%} of "
+          f"{res['timed']['wall_s']:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
@@ -1393,6 +1481,7 @@ def main() -> int:
     check_volumes(dev, launch_counts, main_inputs, cfg_path, smi)
     check_index(dev, launch_counts, main_inputs, smi)
     check_devices(dev, launch_counts, main_inputs, cfg_path, smi)
+    check_timing(dev, launch_counts, main_inputs, smi)
     check_stripes(cfg_path, smi)
     for (name, W, words), entry in kernels.items():
         by_path = {path: (c["k3_by_words"].get((W, words), 0) if words

@@ -17,6 +17,7 @@ import torch
 from necat_tpu_torch.align.banded import TAIL_MATCH, extend_batch
 from necat_tpu_torch.io.devstore import gather_rows
 from necat_tpu_torch.utils import shapes
+from necat_tpu_torch.utils.logging import count_lanes, sync_dispatch, timed
 
 # descriptor columns (int32; DeviceReadStore guarantees offsets < 2^31)
 DESC_COLS = ("qg", "qglen", "qrc", "tg", "tglen", "qlen", "tlen", "aq", "at")
@@ -64,7 +65,8 @@ class ExtChunk:
         """Host stats [6, PB]: qoff, qend, toff, tend, n_cols, n_match
         (toff/tend in window coordinates). Syncs on the first call."""
         if self._stats is None:
-            self._stats = self.out["stats"].cpu().numpy()
+            with timed("ext.stats_sync"):
+                self._stats = self.out["stats"].cpu().numpy()
         return self._stats
 
     def release(self) -> None:
@@ -182,21 +184,22 @@ class ExtendEngine:
             cs += len(take)
             n_real = len(take)
             PB = max(min_lanes, 1 << (n_real - 1).bit_length())
-            desc = np.zeros((PB, len(DESC_COLS) + n_extra), np.int32)
-            qi = qids[take]
-            desc[:n_real, 0] = self.qdev.offsets[qi]
-            desc[:n_real, 1] = self.qdev.offsets[qi + 1] - self.qdev.offsets[qi]
-            desc[:n_real, 2] = qdir[take]
-            desc[:n_real, 3] = tg_base[take] + ws[take]
-            desc[:n_real, 4] = wlen[take]
-            desc[:n_real, 5] = qsize[take]
-            desc[:n_real, 6] = wlen[take]
-            desc[:n_real, 7] = aq[take]
-            desc[:n_real, 8] = at_abs[take] - ws[take]
-            if extra_cols:
-                desc[:, len(DESC_COLS):] = -1
-                for ci, arr in enumerate(extra_cols.values()):
-                    desc[:n_real, len(DESC_COLS) + ci] = np.asarray(arr)[take]
+            with timed("ext.chunk_build"):
+                desc = np.zeros((PB, len(DESC_COLS) + n_extra), np.int32)
+                qi = qids[take]
+                desc[:n_real, 0] = self.qdev.offsets[qi]
+                desc[:n_real, 1] = self.qdev.offsets[qi + 1] - self.qdev.offsets[qi]
+                desc[:n_real, 2] = qdir[take]
+                desc[:n_real, 3] = tg_base[take] + ws[take]
+                desc[:n_real, 4] = wlen[take]
+                desc[:n_real, 5] = qsize[take]
+                desc[:n_real, 6] = wlen[take]
+                desc[:n_real, 7] = aq[take]
+                desc[:n_real, 8] = at_abs[take] - ws[take]
+                if extra_cols:
+                    desc[:, len(DESC_COLS):] = -1
+                    for ci, arr in enumerate(extra_cols.values()):
+                        desc[:n_real, len(DESC_COLS) + ci] = np.asarray(arr)[take]
             planned.append(dict(desc=desc, take=take, ws=ws[take].copy(),
                                 L=L, n_real=n_real, group=int(g), PB=PB))
         return planned
@@ -212,8 +215,13 @@ class ExtendEngine:
         for i, p in enumerate(self.plan(qids, qdir, qsize, tg_base, tsize, aq, at_abs, W,
                                         groups=groups, window_margin=window_margin)):
             qdev, sdev = self.qdevs[i % len(self.qdevs)], self.sdevs[i % len(self.qdevs)]
-            desc = torch.from_numpy(p["desc"]).to(qdev.device)
-            out = gather_extend(qdev, sdev, desc, W, p["L"], insb_words=insb_words)
+            with timed("ext.dispatch"):
+                with timed("ext.desc_upload"):
+                    desc = torch.from_numpy(p["desc"]).to(qdev.device)
+                with timed("ext.enqueue"):
+                    out = gather_extend(qdev, sdev, desc, W, p["L"], insb_words=insb_words)
+                sync_dispatch("ext.device_exec", qdev.device)
+            count_lanes(p["PB"], p["n_real"], p["L"])
             chunks.append(ExtChunk(out=out, sel=sel[p["take"]], n_real=p["n_real"],
                                    L=p["L"], W=W, ws=p["ws"], group=p["group"]))
         return chunks

@@ -69,9 +69,8 @@ def compact_from_packed(
     for b in range(len(tlens)):
         n = int(tlens[b])
         cns_pieces: List[Tuple[int, int, np.ndarray]] = []
-        raw_pieces: List[Tuple[int, int, np.ndarray]] = []
         if n == 0:
-            out.append((cns_pieces, raw_pieces))
+            out.append((cns_pieces, []))
             continue
         p = packed[b, :n]
         cov = (p & 7) != 7
@@ -85,13 +84,54 @@ def compact_from_packed(
             seq = fields[fields < 4]            # row-major: t asc, delta asc
             if len(seq) >= min_size:
                 cns_pieces.append((int(s), int(e), seq.astype(np.uint8)))
-        prev = 0
-        for s, e in [(s, e) for (s, e, _) in cns_pieces] + [(n, n)]:
-            if s - prev >= raw_min_gap:
-                raw_pieces.append((prev, s, templates[b, prev:s].astype(np.uint8)))
-            prev = max(prev, e)
-        out.append((cns_pieces, raw_pieces))
+        out.append((cns_pieces, _raw_pieces(cns_pieces, n, templates[b], raw_min_gap)))
     return out
+
+
+def compact_consensus(
+    emit: np.ndarray,       # bool[TB, L, D]
+    base: np.ndarray,       # uint8[TB, L, D]
+    coverage: np.ndarray,   # int32[TB, L]
+    tlens: np.ndarray,      # int32[TB]
+    templates: np.ndarray,  # uint8[TB, L] the templates' codes
+    min_cov: int,
+    min_size: int,
+    raw_min_gap: int,
+) -> List[Tuple[List[Tuple[int, int, np.ndarray]], List[Tuple[int, int, np.ndarray]]]]:
+    """Host compaction of call_consensus' dense output (the oracle of
+    compact_from_packed and compact_from_stream;
+    necat_tpu/consensus/backbone.py:307): per template (cns_pieces,
+    raw_pieces) as compact_from_packed gives them, with runs of coverage >=
+    min_cov of >= min_size columns."""
+    out = []
+    for b in range(emit.shape[0]):
+        n = int(tlens[b])
+        cns_pieces: List[Tuple[int, int, np.ndarray]] = []
+        if n == 0:
+            out.append((cns_pieces, []))
+            continue
+        cov = coverage[b, :n] >= min_cov
+        dif = np.diff(np.r_[0, cov.astype(np.int8), 0])
+        for s, e in zip(np.flatnonzero(dif == 1), np.flatnonzero(dif == -1)):
+            if e - s < min_size:
+                continue
+            seq = base[b, s:e][emit[b, s:e]]     # row-major: t asc, delta asc
+            if len(seq) >= min_size:
+                cns_pieces.append((int(s), int(e), seq.astype(np.uint8)))
+        out.append((cns_pieces, _raw_pieces(cns_pieces, n, templates[b], raw_min_gap)))
+    return out
+
+
+def _raw_pieces(cns_pieces, n: int, template: np.ndarray, raw_min_gap: int):
+    """The uncorrected passthrough of a template's gaps of >= raw_min_gap
+    between its corrected pieces (get_raw_intvs, consensus_one_read.c:19-65)."""
+    raw_pieces: List[Tuple[int, int, np.ndarray]] = []
+    prev = 0
+    for s, e in [(s, e) for (s, e, _) in cns_pieces] + [(n, n)]:
+        if s - prev >= raw_min_gap:
+            raw_pieces.append((prev, s, template[prev:s].astype(np.uint8)))
+        prev = max(prev, e)
+    return raw_pieces
 
 
 def hot_insertion_mask(weights, coverage, min_cov) -> torch.Tensor:
@@ -150,9 +190,8 @@ def compact_from_stream(
         n = int(tlens[b])
         cov = coverage[b, :n] >= min_cov
         cns_pieces: List[Tuple[int, int, np.ndarray]] = []
-        raw_pieces: List[Tuple[int, int, np.ndarray]] = []
         if n == 0:
-            out.append((cns_pieces, raw_pieces))
+            out.append((cns_pieces, []))
             continue
         ovr = (overrides or {}).get(b) or {}
         dif = np.diff(np.r_[0, cov.astype(np.int8), 0])
@@ -193,10 +232,5 @@ def compact_from_stream(
                 seq = stream[b, lo:hi]
             if len(seq) >= min_size:
                 cns_pieces.append((int(s), int(e), seq.astype(np.uint8)))
-        prev = 0
-        for s, e in [(s, e) for (s, e, _) in cns_pieces] + [(n, n)]:
-            if s - prev >= raw_min_gap:
-                raw_pieces.append((prev, s, templates[b, prev:s].astype(np.uint8)))
-            prev = max(prev, e)
-        out.append((cns_pieces, raw_pieces))
+        out.append((cns_pieces, _raw_pieces(cns_pieces, n, templates[b], raw_min_gap)))
     return out

@@ -46,7 +46,7 @@ from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_devices
-from necat_tpu_torch.utils.logging import logger
+from necat_tpu_torch.utils.logging import logger, timed
 
 # seconds spent in each part of correct_reads, added up over its calls (the
 # polish stage clears it and records it in its manifest): "waves" (extension
@@ -148,8 +148,9 @@ def correct_reads(store: ReadStore, cands: Candidates,
     engines = id_map = None
 
     def engines_of(st: ReadStore):
-        return [ExtendEngine(q, q, opts.pairs_per_chunk)
-                for q in (DeviceReadStore(st, d) for d in devs)]
+        with timed("cns.devstore_init"):
+            return [ExtendEngine(q, q, opts.pairs_per_chunk)
+                    for q in (DeviceReadStore(st, d) for d in devs)]
 
     if not small_memory:
         engines = engines_of(store)
@@ -379,7 +380,8 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
         lambda ids: np.searchsorted(id_map, ids))
     while round_id <= max_rounds:
         wave = (opts.n_ident + 10) if round_id == 0 else opts.wave_size
-        p_tpl, p_ci, slots = _select_wave(st, cands, round_id, wave, opts.max_cov)
+        with timed("cns.wave_build"):
+            p_tpl, p_ci, slots = _select_wave(st, cands, round_id, wave, opts.max_cov)
         if len(p_tpl) == 0:
             if round_id == 0:
                 round_id += 1
@@ -412,38 +414,42 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
             ibufs = {bi: torch.zeros((TB + 1, fused.IDENT_SLOTS, 3), dtype=torch.float32,
                                      device=buckets[bi].weights.device)
                      for bi in sorted({int(g) for g in base["groups"]})}
-            chunks = fused.dispatch_wave(engines, **base, W=W0, slots=slots,
-                                         ibufs=ibufs)
-            run0 = functools.partial(run, ibufs=ibufs)
-            lane_w = (_ident_ladder(run0, chunks, npairs, cands, p_ci, slots,
-                                    opts) if rescue else None)
+            with timed("cns.extend_pairs_total"):
+                chunks = fused.dispatch_wave(engines, **base, W=W0, slots=slots,
+                                             ibufs=ibufs)
+                run0 = functools.partial(run, ibufs=ibufs)
+                lane_w = (_ident_ladder(run0, chunks, npairs, cands, p_ci, slots,
+                                        opts) if rescue else None)
             for bi, ib in ibufs.items():
                 cutoffs[bi] = fused.cutoff_from_idents(ib, n_ident=opts.n_ident)
-            if lane_w is None:
-                fused.scatter_round0(chunks, cutoffs, tensors, opts.min_align_size,
-                                     opts.mapping_ratio)
-                fused.collect_fused(chunks, stats)
-            else:        # the band of each lane is decided: scatter at it
-                for Wx in np.unique(lane_w):
-                    idx = np.flatnonzero(lane_w == Wx)
-                    fused.collect_fused(run(idx, W=int(Wx)), stats, sel=idx)
+            with timed("cns.extend_pairs_total"):
+                if lane_w is None:
+                    fused.scatter_round0(chunks, cutoffs, tensors, opts.min_align_size,
+                                         opts.mapping_ratio)
+                    fused.collect_fused(chunks, stats)
+                else:        # the band of each lane is decided: scatter at it
+                    for Wx in np.unique(lane_w):
+                        idx = np.flatnonzero(lane_w == Wx)
+                        fused.collect_fused(run(idx, W=int(Wx)), stats, sel=idx)
         else:
-            chunks = fused.dispatch_wave(
-                engines, **base, W=W0, rescue_defer=rescue,
-                qend_cand=cands.qend[p_ci].astype(np.int64))
-            fused.collect_fused(chunks, stats)
-            if rescue:
-                _defer_ladder(run, stats, cands, p_ci, opts)
-        acc = np.flatnonzero(stats["ok"])
-        _apply_cov(st, p_tpl[acc], stats["toff"][acc], stats["tend"][acc])
-        if _wide_delta(opts) and len(acc):
-            w_acc = fused.calc_cns_weight(torch.from_numpy(stats["ident"][acc])).numpy()
-            for j, i in enumerate(acc):
-                ci = p_ci[i]
-                tpls[p_tpl[i]].accepted.append(
-                    (int(cands.qid[ci]), int(cands.qdir[ci]),
-                     int(stats["qoff"][i]), int(stats["qend"][i]),
-                     int(stats["toff"][i]), int(stats["tend"][i]), float(w_acc[j])))
+            with timed("cns.extend_pairs_total"):
+                chunks = fused.dispatch_wave(
+                    engines, **base, W=W0, rescue_defer=rescue,
+                    qend_cand=cands.qend[p_ci].astype(np.int64))
+                fused.collect_fused(chunks, stats)
+                if rescue:
+                    _defer_ladder(run, stats, cands, p_ci, opts)
+        with timed("cns.accept"):
+            acc = np.flatnonzero(stats["ok"])
+            _apply_cov(st, p_tpl[acc], stats["toff"][acc], stats["tend"][acc])
+            if _wide_delta(opts) and len(acc):
+                w_acc = fused.calc_cns_weight(torch.from_numpy(stats["ident"][acc])).numpy()
+                for j, i in enumerate(acc):
+                    ci = p_ci[i]
+                    tpls[p_tpl[i]].accepted.append(
+                        (int(cands.qid[ci]), int(cands.qdir[ci]),
+                         int(stats["qoff"][i]), int(stats["qend"][i]),
+                         int(stats["toff"][i]), int(stats["tend"][i]), float(w_acc[j])))
         round_id += 1
 
 
@@ -454,27 +460,32 @@ def _run_supergroup(store, engines, cands, groups, sg_ids, opts: CnsOptions, id_
     TB = opts.templates_per_batch
     buckets: List[_Bucket] = []
     tpls: List[_Tpl] = []
-    for bi in range(0, len(sg_ids), TB):
-        b = _Bucket(store, sg_ids[bi:bi + TB], TB, opts.max_delta,
-                    engines[len(buckets) % len(engines)].device)
-        buckets.append(b)
-        for row in range(b.n_real):
-            tid = int(b.ids[row])
-            tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
-                             groups[tid]))
+    with timed("cns.bucket_setup"):
+        for bi in range(0, len(sg_ids), TB):
+            b = _Bucket(store, sg_ids[bi:bi + TB], TB, opts.max_delta,
+                        engines[len(buckets) % len(engines)].device)
+            buckets.append(b)
+            for row in range(b.n_real):
+                tid = int(b.ids[row])
+                tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
+                                 groups[tid]))
     t0 = time.perf_counter()
     _run_waves(engines, cands, buckets, tpls, opts, _SelState(tpls), id_map)
     t1 = time.perf_counter()
-    for b in buckets:
-        w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]
-        args = (opts.min_cov, opts.ins_frac, opts.ins_offset)
-        if _wide_delta(opts):
-            hot = hot_insertion_mask(w, cov, opts.min_cov)
-            stream, cum_t, _, cov8 = consensus_stream(w, cov, *args)
-            b.stream = tuple(x.cpu().numpy() for x in (stream, cum_t, cov8, hot))
-        else:
-            b.packed = consensus_packed(w, cov, *args).cpu().numpy()
-        b.weights = b.covten = w = cov = None      # free the tensors early
+    with timed("cns.call_consensus"):
+        for b in buckets:
+            w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]
+            args = (opts.min_cov, opts.ins_frac, opts.ins_offset)
+            if _wide_delta(opts):
+                hot = hot_insertion_mask(w, cov, opts.min_cov)
+                stream, cum_t, _, cov8 = consensus_stream(w, cov, *args)
+                with timed("cns.download"):
+                    b.stream = tuple(x.cpu().numpy() for x in (stream, cum_t, cov8, hot))
+            else:
+                packed = consensus_packed(w, cov, *args)
+                with timed("cns.download"):
+                    b.packed = packed.cpu().numpy()
+            b.weights = b.covten = w = cov = packed = None   # free the tensors early
     seconds_by_part["waves"] += t1 - t0
     seconds_by_part["consensus"] += time.perf_counter() - t1
     return buckets, tpls
@@ -484,27 +495,28 @@ def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
                         template_cuts: dict) -> List[CnsRecord]:
     records: List[CnsRecord] = []
     for bi, b in enumerate(buckets):
-        tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
-        if b.stream is not None:
-            stream, cum_t, cov8, hot = b.stream
-            t0 = time.perf_counter()
-            overrides = _bucket_hot_overrides(store, bi, tpls, hot, tbatch_np)
-            t1 = time.perf_counter()
-            cuts = {r_: template_cuts[int(b.ids[r_])] for r_ in range(b.n_real)
-                    if int(b.ids[r_]) in template_cuts}
-            pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
-                                         opts.min_cov, opts.min_size, opts.raw_min_gap,
-                                         overrides=overrides, cut_at=cuts)
-            seconds_by_part["overrides"] += t1 - t0
-        else:
-            t1 = time.perf_counter()
-            # full consensus (-f 1) keeps reads whole: covered-run threshold
-            # drops to 0.85*min_size (cbcns.c:200)
-            min_run = (max(1, int(opts.min_size * 0.85))
-                       if opts.full_consensus else None)
-            pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
-                                         opts.min_size, opts.raw_min_gap,
-                                         max_delta=opts.max_delta, min_run=min_run)
+        with timed("cns.compact"):
+            tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
+            if b.stream is not None:
+                stream, cum_t, cov8, hot = b.stream
+                t0 = time.perf_counter()
+                overrides = _bucket_hot_overrides(store, bi, tpls, hot, tbatch_np)
+                t1 = time.perf_counter()
+                cuts = {r_: template_cuts[int(b.ids[r_])] for r_ in range(b.n_real)
+                        if int(b.ids[r_]) in template_cuts}
+                pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
+                                             opts.min_cov, opts.min_size, opts.raw_min_gap,
+                                             overrides=overrides, cut_at=cuts)
+                seconds_by_part["overrides"] += t1 - t0
+            else:
+                t1 = time.perf_counter()
+                # full consensus (-f 1) keeps reads whole: covered-run
+                # threshold drops to 0.85*min_size (cbcns.c:200)
+                min_run = (max(1, int(opts.min_size * 0.85))
+                           if opts.full_consensus else None)
+                pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
+                                             opts.min_size, opts.raw_min_gap,
+                                             max_delta=opts.max_delta, min_run=min_run)
         records.extend(_emit_records(b, pieces, tbatch_np, opts))
         seconds_by_part["compact"] += time.perf_counter() - t1
     return records

@@ -31,6 +31,7 @@ import torch
 from necat_tpu_torch.align.banded import TAIL_MATCH
 from necat_tpu_torch.align.engine import DESC_COLS, gather_extend
 from necat_tpu_torch.consensus.tags import scatter_chunk
+from necat_tpu_torch.utils.logging import count_lanes, sync_dispatch, timed
 
 # extra desc columns after the 9 DESC_COLS (engine.plan extra_cols)
 #   row    — template row within its bucket (TB = dead lane)
@@ -283,21 +284,26 @@ def dispatch_wave(engines, *, qids, qdir, qsize, tg_base, tsize_full, aq,
         desc[:p["n_real"], _C["ws"]] = p["ws"]     # this chunk's window starts
         g = p["group"]
         eng = engines[g % len(engines)]
-        desc_dev = torch.from_numpy(desc).to(eng.device)
-        bufs = None
-        if ibufs is not None:
-            stats, bufs = ident_pass(
-                eng.qdev, eng.sdev, desc_dev, ibufs[g],
-                min_align_size=min_align_size, good_end_margin=good_end_margin,
-                W=W, L=p["L"], cols_guard=cols_guard, tail_match=tail_match)
-        else:
-            wts, cov = tensors[g]
-            stats = extend_scatter(
-                eng.qdev, eng.sdev, desc_dev, cutoffs[g], wts, cov,
-                min_align_size=min_align_size, mapping_ratio=mapping_ratio,
-                allow_fullcov=allow_fullcov, W=W, L=p["L"],
-                rescue_defer=rescue_defer, cols_guard=cols_guard,
-                tail_match=tail_match, insb_words=insb_words)
+        with timed("cns.fused_dispatch"):
+            with timed("cns.fused_desc_up"):
+                desc_dev = torch.from_numpy(desc).to(eng.device)
+            bufs = None
+            with timed("cns.fused_call"):
+                if ibufs is not None:
+                    stats, bufs = ident_pass(
+                        eng.qdev, eng.sdev, desc_dev, ibufs[g],
+                        min_align_size=min_align_size, good_end_margin=good_end_margin,
+                        W=W, L=p["L"], cols_guard=cols_guard, tail_match=tail_match)
+                else:
+                    wts, cov = tensors[g]
+                    stats = extend_scatter(
+                        eng.qdev, eng.sdev, desc_dev, cutoffs[g], wts, cov,
+                        min_align_size=min_align_size, mapping_ratio=mapping_ratio,
+                        allow_fullcov=allow_fullcov, W=W, L=p["L"],
+                        rescue_defer=rescue_defer, cols_guard=cols_guard,
+                        tail_match=tail_match, insb_words=insb_words)
+            sync_dispatch(f"cns.fused_exec_L{p['L']}_PB{p['PB']}", eng.device)
+        count_lanes(p["PB"], p["n_real"], p["L"])
         chunks.append(FusedChunk(stats, p["take"], p["n_real"], p["ws"], g,
                                  bufs=bufs, desc_dev=desc_dev))
     return chunks
@@ -309,9 +315,10 @@ def scatter_round0(chunks, cutoffs: dict, tensors: dict, min_align_size: int,
     device cutoffs exist; replaces each chunk's stats with the 8-row form."""
     for ch in chunks:
         wts, cov = tensors[ch.group]
-        ch.stats_dev = accept_scatter(
-            ch.desc_dev, ch.stats_dev, cutoffs[ch.group], wts, cov, ch.bufs,
-            min_align_size=min_align_size, mapping_ratio=mapping_ratio)
+        with timed("cns.fused_dispatch"), timed("cns.fused_call"):
+            ch.stats_dev = accept_scatter(
+                ch.desc_dev, ch.stats_dev, cutoffs[ch.group], wts, cov, ch.bufs,
+                min_align_size=min_align_size, mapping_ratio=mapping_ratio)
         ch.bufs = None
         ch.desc_dev = None
 
@@ -338,7 +345,8 @@ def collect_fused(chunks, stats: dict, sel=None) -> None:
     chunk; toff/tend converted to absolute template coordinates). `sel` maps
     the chunks' pair ids into the caller's (a rescue subset's pairs)."""
     for ch in chunks:
-        st = ch.stats_dev.cpu().numpy()
+        with timed("ext.stats_sync"):
+            st = ch.stats_dev.cpu().numpy()
         r = slice(0, ch.n_real)
         idx = ch.sel if sel is None else np.asarray(sel)[ch.sel]
         stats["qoff"][idx] = st[0, r]

@@ -83,6 +83,19 @@ class KmerIndex:
                    sorted_hashes=sh, sorted_positions=sp, bucket_starts=bucket_starts,
                    run_end=run_end, n_search_steps=_steps_for(largest))
 
+    @property
+    def n_kmers(self) -> int:
+        """Entries of the index: the valid k-mers of the volume."""
+        return int(self.sorted_hashes.shape[0])
+
+    @property
+    def avg_multiplicity(self) -> float:
+        """Mean positions per distinct k-mer (about the read set's
+        coverage; necat_tpu/index/kmer_index.py:64-75). One device read."""
+        sh = self.sorted_hashes
+        distinct = int((sh[1:] != sh[:-1]).sum()) + 1 if self.n_kmers else 1
+        return self.n_kmers / distinct
+
     def lookup_ranges(self, qh: torch.Tensor):
         """(start, count) in the sorted lists for each query hash; counts above
         occ_cutoff are zeroed (repeat suppression). A binary search for the

@@ -1,5 +1,6 @@
 """ReadStore: a flat store of 2-bit-encodable reads (the port's copy of
-necat_tpu/io/readstore.py, the part the port uses, subject volumes included).
+necat_tpu/io/readstore.py: subject volumes and the packed container
+dump_packed / load_packed included).
 
 Sequences are one concatenated uint8 code array (values 0..3) plus int64
 offsets (the role of the reference's PackedDB, src/common/packed_db.{h,c});
@@ -176,6 +177,42 @@ class ReadStore:
         return out, lens.astype(np.int32)
 
 
+_PAC_MAGIC = b"NTPC"     # the packed container of necat_tpu/io/readstore.py:205-259
+_PAC_VERSION = 1
+
+
+def dump_packed(store: ReadStore, path: str | os.PathLike) -> None:
+    """Write the store as a 2-bit packed container (the pdb_dump role,
+    src/common/packed_db.c:291-315), byte for byte the JAX package's format:
+    magic, then version, n_reads and total_bases (u64), offsets[n + 1]
+    (i64), the names' blob length (u64) and the utf-8 names joined by
+    newlines, and the u32 words of pack_2bit."""
+    with open(path, "wb") as f:
+        f.write(_PAC_MAGIC)
+        np.array([_PAC_VERSION, store.n_reads, store.total_bases], np.uint64).tofile(f)
+        store.offsets.astype(np.int64).tofile(f)
+        blob = "\n".join(store.names).encode()
+        np.array([len(blob)], np.uint64).tofile(f)
+        f.write(blob)
+        pack_2bit(store.bases).tofile(f)
+
+
+def load_packed(path: str | os.PathLike) -> ReadStore:
+    """The store dump_packed wrote (the pdb_load role, packed_db.c:386);
+    ValueError for another file or version."""
+    with open(path, "rb") as f:
+        if f.read(4) != _PAC_MAGIC:
+            raise ValueError(f"{path}: not a packed read store")
+        ver, n_reads, total = np.fromfile(f, np.uint64, 3)
+        if ver != _PAC_VERSION:
+            raise ValueError(f"{path}: unsupported version {ver}")
+        offsets = np.fromfile(f, np.int64, int(n_reads) + 1)
+        blob = f.read(int(np.fromfile(f, np.uint64, 1)[0])).decode()
+        names = blob.split("\n") if blob else [""] * int(n_reads)
+        words = np.fromfile(f, np.uint32, -(-int(total) // 16))
+    return ReadStore(bases=unpack_2bit(words, int(total)), offsets=offsets, names=names)
+
+
 def pack_2bit(bases: np.ndarray) -> np.ndarray:
     """Pack uint8 codes 0..3 into uint32 words, 16 bases per word, base 0 in the
     high bits (the _set_pac bit layout, src/common/ontcns_aux.h:118)."""
@@ -186,3 +223,9 @@ def pack_2bit(bases: np.ndarray) -> np.ndarray:
     b = b.reshape(-1, 16)
     shifts = np.arange(15, -1, -1, dtype=np.uint32) * 2
     return (b << shifts).sum(axis=1, dtype=np.uint32)
+
+
+def unpack_2bit(words: np.ndarray, n: int) -> np.ndarray:
+    """The first n bases of pack_2bit's words, uint8 codes 0..3."""
+    shifts = np.arange(15, -1, -1, dtype=np.uint32) * 2
+    return ((words[:, None] >> shifts) & 3).reshape(-1)[:n].astype(np.uint8)

@@ -33,6 +33,7 @@ from necat_tpu_torch.overlap.options import MapOptions
 from necat_tpu_torch.parallel.mesh import Shard, ShardedIndex, device_threads, shard_stats
 from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_devices
+from necat_tpu_torch.utils.logging import timed
 
 
 def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
@@ -53,7 +54,8 @@ def find_all_candidates(qstore: ReadStore, sstore: ReadStore, opts: MapOptions,
     best opts.ncan candidates per query are kept (pm_worker.c:163-186)."""
     cands, _ = _search(qstore, sstore, opts, pairwise, resolve_devices(device),
                        query_batch_size, index, subject_read_start, query_ids)
-    return top_n_per_query(cands, opts.ncan)
+    with timed("cand.topn"):
+        return top_n_per_query(cands, opts.ncan)
 
 
 def _search(qstore, sstore, opts, pairwise, devs, query_batch_size, index,
@@ -67,18 +69,20 @@ def _search(qstore, sstore, opts, pairwise, devs, query_batch_size, index,
     if not isinstance(opts, MapOptions):
         raise TypeError(f"find_all_candidates takes necat_tpu_torch's MapOptions, not "
                         f"{type(opts).__module__}.{type(opts).__name__}")
+    if index is not None and len(devs) != 1:
+        raise ValueError("a k-mer index built by the caller serves one device")
     if qdevs is None and qstore.total_bases < shapes.DEVICE_STORE_MAX_BASES:
-        qdevs = [DeviceReadStore(qstore, d) for d in devs]
+        with timed("cand.devstore_init"):
+            qdevs = [DeviceReadStore(qstore, d) for d in devs]
     if packed is None and sstore is qstore:
         packed = qdevs
-    if index is not None:
-        if len(devs) != 1:
-            raise ValueError("a k-mer index built by the caller serves one device")
-        shards = [Shard.of(sstore, 0, sstore.n_reads, 0, devs[0], index)]
-    else:
-        shards = ShardedIndex(devs, sstore, opts.kmer_size, opts.occ_cutoff,
-                              n_bucket_bits=22 if len(devs) == 1 else 14,
-                              packed=packed).shards
+    with timed("cand.index_build"):
+        if index is not None:
+            shards = [Shard.of(sstore, 0, sstore.n_reads, 0, devs[0], index)]
+        else:
+            shards = ShardedIndex(devs, sstore, opts.kmer_size, opts.occ_cutoff,
+                                  n_bucket_bits=22 if len(devs) == 1 else 14,
+                                  packed=packed).shards
     ns = sstore.n_reads
     int32_max = np.iinfo(np.int32).max
     all_q = np.arange(qstore.n_reads) if query_ids is None else np.asarray(query_ids)
@@ -97,27 +101,32 @@ def _search(qstore, sstore, opts, pairwise, devs, query_batch_size, index,
                 in_vol = (local >= 0) & (local < ns)
                 limit[in_vol] = sstore.offsets[local[in_vol]]
             for qdir in (0, 1):
-                rc = np.full(len(qidx), bool(qdir))
-                if qdevs is not None:
-                    batches = [qdevs[sh.slot].read_rows(qidx, rc, pad) for sh in shards]
-                else:
-                    host = torch.from_numpy(qstore.padded_batch(
-                        qidx, pad_to=pad, multiple=1, rc=bool(qdir))[0])
-                    batches = [host.to(sh.device) for sh in shards]
-                got = []
-                for sh, st in zip(shards, shard_stats(shards, batches, lens, limit, opts, pool)):
-                    # the stats hold chain 0 of every pair, then chain 1, ...
-                    chain = np.arange(st.shape[1]) // max(st.shape[1] // opts.n_chains_per_pair, 1)
-                    kept, c = stats_to_candidates(st, qidx.astype(np.int32), lens, qdir, sh.sizes,
-                                                  subject_read_start + sh.lo, opts)
-                    got.append((c, chain[kept], st[0][kept]))
-                c = Candidates.concat([g[0] for g in got])
-                chain = np.concatenate([g[1] for g in got])
-                if len(got) > 1:
-                    # the shards' union in the one-device order: chain, then
-                    # query row, then subject (group_pairs' sort)
-                    o = np.lexsort((c.sid, np.concatenate([g[2] for g in got]), chain))
-                    c, chain = c.take(o), chain[o]
+                with timed("cand.batch_total"):       # one strand of the batch
+                    with timed("cand.read_rows"):
+                        rc = np.full(len(qidx), bool(qdir))
+                        if qdevs is not None:
+                            batches = [qdevs[sh.slot].read_rows(qidx, rc, pad) for sh in shards]
+                        else:
+                            host = torch.from_numpy(qstore.padded_batch(
+                                qidx, pad_to=pad, multiple=1, rc=bool(qdir))[0])
+                            batches = [host.to(sh.device) for sh in shards]
+                    with timed("cand.dispatch_total"):
+                        stats = shard_stats(shards, batches, lens, limit, opts, pool)
+                    got = []
+                    for sh, st in zip(shards, stats):
+                        # the stats hold chain 0 of every pair, then chain 1, ...
+                        chain = (np.arange(st.shape[1])
+                                 // max(st.shape[1] // opts.n_chains_per_pair, 1))
+                        kept, c = stats_to_candidates(st, qidx.astype(np.int32), lens, qdir,
+                                                      sh.sizes, subject_read_start + sh.lo, opts)
+                        got.append((c, chain[kept], st[0][kept]))
+                    c = Candidates.concat([g[0] for g in got])
+                    chain = np.concatenate([g[1] for g in got])
+                    if len(got) > 1:
+                        # the shards' union in the one-device order: chain,
+                        # then query row, then subject (group_pairs' sort)
+                        o = np.lexsort((c.sid, np.concatenate([g[2] for g in got]), chain))
+                        c, chain = c.take(o), chain[o]
                 parts.append(c)
                 chains.append(chain)
     chain = np.concatenate(chains) if chains else np.zeros(0, np.int64)
@@ -157,7 +166,8 @@ def candidates_by_volumes(store: ReadStore, opts: MapOptions, vol_size: int, *,
     qpos = pos[cands.qid]
     order = np.lexsort((cands.sid, qpos % query_batch_size, np.concatenate(chains),
                         cands.qdir, qpos // query_batch_size))
-    return top_n_per_query(cands.take(order), opts.ncan)
+    with timed("cand.topn"):
+        return top_n_per_query(cands.take(order), opts.ncan)
 
 
 # bytes of per-column buffers a slice of extension chunks may hold (about 20

@@ -32,6 +32,7 @@ from necat_tpu_torch.io.devstore import DeviceReadStore
 from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import candidates_forward
 from necat_tpu_torch.overlap.options import MapOptions
+from necat_tpu_torch.utils.logging import sync_dispatch, timed
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -113,11 +114,15 @@ def shard_stats(shards: Sequence[Shard], batches: Sequence[torch.Tensor], lens: 
         on_card = (torch.cuda.device(sh.device) if sh.device.type == "cuda"
                    else contextlib.nullcontext())
         with on_card:
-            lim = torch.as_tensor(np.minimum(np.maximum(limit - sh.base, 0), INT32_MAX),
-                                  device=sh.device)
-            return candidates_forward(sh.index, sh.offsets, batches[i],
-                                      torch.as_tensor(lens, device=sh.device), lim,
-                                      opts).cpu().numpy()
+            with timed("cand.limits"):
+                lim = torch.as_tensor(np.minimum(np.maximum(limit - sh.base, 0), INT32_MAX),
+                                      device=sh.device)
+            with timed("cand.dispatch"):
+                st = candidates_forward(sh.index, sh.offsets, batches[i],
+                                        torch.as_tensor(lens, device=sh.device), lim, opts)
+            sync_dispatch("cand.exec", sh.device)
+            with timed("cand.stats_sync"):
+                return st.cpu().numpy()
 
     if pool is None:
         return [run(i) for i in range(len(shards))]

@@ -3,6 +3,8 @@ same reads from the same seed as bench.py and necat_tpu's runs)."""
 
 from __future__ import annotations
 
+import os
+
 from necat_tpu_torch.io import simulate
 from necat_tpu_torch.io.readstore import ReadStore
 
@@ -17,3 +19,12 @@ def gen_benchmark_reads(genome_size: int = 500_000, coverage: float = 30.0,
         genome, coverage=coverage, mean_len=12000, min_len=3000, max_len=40000,
         em=em, seed=seed + 1)
     return genome, ReadStore.from_seqs(reads), (st, sd, ln)
+
+
+def write_benchmark_fasta(path: str | os.PathLike, genome_size: int = 500_000,
+                          coverage: float = 30.0, seed: int = 1234) -> int:
+    """Write gen_benchmark_reads' reads to a FASTA file (gzip if the path ends
+    in .gz); returns the number of reads."""
+    _, store, _ = gen_benchmark_reads(genome_size, coverage, seed)
+    store.to_fasta(path)
+    return store.n_reads
