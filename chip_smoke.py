@@ -122,13 +122,23 @@ Phases, each failing the run on error:
              beside that wall. Every cand.*, ext.* and cns.* scope of the
              fused path must appear; K1 and K3 must launch at 128 and K2
              never.
-Phases 17, 18 and 19 run before 16, which empties this process's allocator
-for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
+ 20. adaptive K1a and K3a (the adaptive band of NECAT_TPU_NO_PALLAS) against
+             their plain versions at every width of KERNEL_WIDTHS (L=8192 at
+             128, ADAPTIVE_L at the others; K3a also with 3 insb words at
+             256), exact equality, times beside the bounds; then main's
+             search and correction with NECAT_TPU_NO_PALLAS set: candidates
+             equal main's, K1a and K3a must launch at 128 and no other
+             kernel may, and the records are held to the JAX package's own
+             default run of this set on the CPU (JAX_CPU_MAIN_REFERENCE,
+             scripts/jax_main_reference.py). K1a and K3a may launch in no
+             other phase.
+Phases 17, 18, 19 and 20 run before 16, which empties this process's
+allocator for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and W=64 (so that K2 is held at every width
 of KERNEL_WIDTHS), and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
-small-memory, volumes, index, devices, timing) and read after it; phase 16's launches run in other
+small-memory, volumes, index, devices, timing, adaptive) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
@@ -155,6 +165,24 @@ import torch  # noqa: E402
 # options): the main path must correct >= 97 % as many reads, at an identity
 # no more than 0.5 percentage points lower.
 JAX_CPU_REFERENCE = {"corrected_reads": 339, "identity": 99.13}
+# The same run as scripts/jax_main_reference.py makes it (necat_tpu on the
+# CPU, no monkeypatch, so its adaptive band; 339 reads at 99.13 % in
+# accuracy_sample). Phase 20 runs the port's adaptive band on the card and
+# must give these records: the corrected count, and records_digest (tid,
+# left, right, corrected, seq) over every template but those of
+# MAIN_TIE_FLIPS, exactly (so no identity sample is needed). There the
+# reference's float32 tag sums tie a consensus call that the port's exact
+# float64 sums do not (template 199, column 5240: A 3.1441555 against a gap
+# of 3.14415574, the exact sum rounded once, 3.1441555 when accumulated in
+# float32; ROADMAP queue 3), so its record must keep left and right and may
+# differ from the reference's seq by one base in length.
+MAIN_TIE_FLIPS = (199,)
+JAX_CPU_MAIN_REFERENCE = {
+    "corrected_reads": 339,
+    "digest": "301b22a87005f83e98d372fcbf76cbc705d08088f2cc273b40edc848a6acd789",
+    "digest_without_tie_flips":
+        "372999c2bb3479406964c523b2469eb71d75b677f248c9dc1b1602ed50ea8c30",
+    "tie_flips": {"199": [15, 16329, 16276]}}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
 # necat_tpu's `cli assemble` of the bench read set on the CPU with the config
 # of phase 8 (the adaptive band; scripts/jax_assemble_reference.py):
@@ -191,10 +219,20 @@ VOL_SIZE = 1_500_000                 # phase 15: three volumes of the 4.02 Mb be
 # E. coli-scale volume (PERF.md's 4.6 Mb x40 stand-in, 184 Mb)
 ECOLI_VOLUME = dict(genome_size=4_600_000, coverage=40, min_len=3000, max_len=20000,
                     sub=0.10, seed=7)
+# K1a and K3a replace XLA scan code of the JAX package's adaptive band (no
+# pallas_call): banded_forward, and banded_traceback + ops_to_cols
 REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
-            "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325"}
+            "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325",
+            "banded_forward_adaptive": "necat_tpu/align/banded.py:48",
+            "adaptive_backtrack_cols": "necat_tpu/align/banded.py:112+:181"}
 ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
+# the adaptive band's kernels (NECAT_TPU_NO_PALLAS): phase 20 only
+ADAPTIVE = ("banded_forward_adaptive", "adaptive_backtrack_cols")
+# Phase 20 holds K1a and K3a against their plain versions at L=8192 at
+# main's width (128) and at ADAPTIVE_L at the other widths: the plain
+# versions launch a few torch ops per column or op (4-8 s a call at 8192).
+ADAPTIVE_L = 2048
 # phase 19: the timing scopes of main's path (the JAX package's names), and
 # those of them that no other scope holds, which PERF.md sums against the wall
 MAIN_SCOPES = ("cand.devstore_init", "cand.index_build", "cand.batch_total", "cand.read_rows",
@@ -221,9 +259,15 @@ PEAK_INT_OPS_S = 132 * 64 * 1.98e9
 # byte. K3's walk tests, per live column, the lanes from its slot down to the
 # end of the insertion run there (k + 1 of them, k from its cols output):
 # op bits and a compare each.
+# A K1a cell (row coordinates, the op alone) needs the mismatch compare, the
+# diag add, left add, min, the chain's prefix-min step, the op select and
+# the compare of the next column's argmin (7). K3a's walk tests lanes as
+# K3's does.
 ENC_OPS = 9 / 4
-OPS_PER_CELL = {"banded_forward": ENC_OPS + 5, "diag_sub_matrix": ENC_OPS}
+OPS_PER_CELL = {"banded_forward": ENC_OPS + 5, "diag_sub_matrix": ENC_OPS,
+                "banded_forward_adaptive": 7}
 OPS_PER_WALK_LANE = 2
+WALKS = ("banded_backtrack_cols", "adaptive_backtrack_cols")
 
 
 def _run(cmd) -> str:
@@ -291,26 +335,34 @@ def _max_abs_err(x, y) -> float:
 
 def _cuda_kernel(name: str, W: int) -> str:
     """The function in KERNEL_SOURCE that the wrapper launches at width W."""
-    base = "banded_backtrack" if name == "banded_backtrack_cols" else name
+    base = {"banded_backtrack_cols": "banded_backtrack",
+            "adaptive_backtrack_cols": "adaptive_backtrack"}.get(name, name)
     return f"{base}_kernel<{W}>"
 
 
-def bound(name: str, a, b, lb, W: int, cols=None, words: int = 1):
+def bound(name: str, a, b, lb, W: int, cols=None, words: int = 1, la=None):
     """(bound_ms, bound_by) of one launch on these inputs: each input byte
     read once and each output byte written once over PEAK_BYTES_S, or the
     integer operations it needs over PEAK_INT_OPS_S, whichever takes longer.
     K3 reads only the live rows of dirs and writes cols and `words` insb
-    words; its operations follow the walk, from its cols output."""
+    words; its operations follow the walk, from its cols output. K1a writes
+    offs, the last column and the cost besides dirs; K3a reads the live rows
+    of dirs, offs up to lb and the la + lb bases the walk consumes."""
     PB, L = a.shape
     MC = b.shape[1]
     ncol = lb.clamp(min=0, max=MC)
     live = int(ncol.sum()) * W                            # cells of columns <= lb
     rows = a.numel() + b.numel() + 8 * PB
-    nbytes = {"diag_sub_matrix": rows + PB * MC * W,
-              "banded_forward": rows + PB * MC * W + 4 * PB,
-              "banded_backtrack_cols": live + 8 * PB + 4 * (1 + words) * PB * MC
-              + 4 * PB}[name]
-    if name == "banded_backtrack_cols":
+    walk_out = 4 * (1 + words) * PB * MC + 4 * PB
+    if name == "adaptive_backtrack_cols":
+        nbytes = (live + 8 * PB + 4 * int((ncol + 1).sum()) + int(la.clamp(min=0).sum())
+                  + int(ncol.sum()) + walk_out)
+    else:
+        nbytes = {"diag_sub_matrix": rows + PB * MC * W,
+                  "banded_forward": rows + PB * MC * W + 4 * PB,
+                  "banded_forward_adaptive": rows + PB * MC * W + 4 * PB * (MC + 2 + W),
+                  "banded_backtrack_cols": live + 8 * PB + walk_out}[name]
+    if name in WALKS:
         in_walk = torch.arange(MC, device=cols.device)[None, :] < ncol[:, None]
         ops = int(((cols >> 5) + 1)[in_walk].sum()) * OPS_PER_WALK_LANE
     else:
@@ -368,26 +420,33 @@ def check_kernels(dev, W: int = 128, L: int = 8192, k3_words=(1,)) -> dict:
         err = _max_abs_err(got, want)
         ms = _time_ms(kernel, 5)
         plain_ms = _time_ms(plain, 1)
-        bound_ms, bound_by = bound(name, a, b, lb, W,
-                                   got[0] if words else None, words or 1)
-        results[(name, W, words)] = dict(
-            name=name, W=W, **({"words": words} if words else {}),
-            cuda_kernel=_cuda_kernel(name, W), route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        print(f"kernel {name}: PB={PB} L={L} W={W}"
-              + (f" words={words}" if words else "") + f" max_abs_err={err} "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f} % of it)", flush=True)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel and plain version disagree ({err})")
+        results[(name, W, words)] = _kernel_row(
+            name, W, words, PB, L, err, ms, plain_ms,
+            bound(name, a, b, lb, W, got[0] if words else None, words or 1))
     return results
+
+
+def _kernel_row(name, W, words, PB, L, err, ms, plain_ms, bound_ms_by) -> dict:
+    """A kernel's row of the "kernels" line, printed; raises if the kernel and
+    its plain version disagree."""
+    bound_ms, bound_by = bound_ms_by
+    print(f"kernel {name}: PB={PB} L={L} W={W}"
+          + (f" words={words}" if words else "") + f" max_abs_err={err} "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.1f} % of it)", flush=True)
+    if err != 0.0:
+        raise AssertionError(f"{name}: kernel and plain version disagree ({err})")
+    return dict(name=name, W=W, **({"words": words} if words else {}), L=L, PB=PB,
+                cuda_kernel=_cuda_kernel(name, W), route="cuda", source=KERNEL_SOURCE,
+                replaces=REPLACES[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _launches(bk) -> dict:
     """This path's launch counts: by (wrapper, W), and K3's by (W, words)."""
     return {"by_width": collections.Counter(bk.launches_by_width),
-            "k3_by_words": collections.Counter(bk.k3_launches_by_words)}
+            "k3_by_words": collections.Counter(bk.k3_launches_by_words),
+            "k3a_by_words": collections.Counter(bk.k3a_launches_by_words)}
 
 
 def _same_records(ra, rb) -> None:
@@ -431,6 +490,33 @@ def check_slice(dev) -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     _same_records(recs["cpu"], recs[str(dev)])
     print("slice: cuda and cpu records identical", flush=True)
+
+
+def records_digest(recs, skip=()) -> str:
+    """sha256 over (tid, left, right, corrected, seq) of each record, in tid
+    order (stable), less the templates in `skip`: one digest of a
+    correction's whole output."""
+    import hashlib
+    h = hashlib.sha256()
+    for r in sorted(recs, key=lambda r: r.tid):
+        if r.tid in skip:
+            continue
+        seq = np.ascontiguousarray(r.seq, dtype=np.uint8)
+        h.update(np.array([r.tid, r.left, r.right, int(r.corrected), len(seq)],
+                          np.int64).tobytes())
+        h.update(seq.tobytes())
+    return h.hexdigest()
+
+
+def dump_records(recs, path: str) -> None:
+    """Every record's tid, left, right, corrected and seq (concatenated, with
+    offsets) in tid order, as one .npz: for comparing two runs' records."""
+    recs = sorted(recs, key=lambda r: r.tid)
+    seqs = [np.ascontiguousarray(r.seq, dtype=np.uint8) for r in recs]
+    np.savez_compressed(path, fields=np.array([[r.tid, r.left, r.right, int(r.corrected)]
+                                               for r in recs], np.int64).reshape(-1, 4),
+                        offsets=np.cumsum([0] + [len(x) for x in seqs]),
+                        seq=np.concatenate(seqs) if seqs else np.zeros(0, np.uint8))
 
 
 def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
@@ -1451,10 +1537,130 @@ def check_timing(dev, launch_counts: dict, main_inputs, smi: str) -> None:
           f"{res['timed']['wall_s']:.3f} s", flush=True)
 
 
+def _timed_once(fn):
+    """(fn's output, its milliseconds on the card by CUDA events), one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_adaptive_kernels(dev, W: int, L: int = 8192, k3_words=(1,)) -> dict:
+    """K1a and K3a (at each insb word count in k3_words) against their plain
+    versions at one production chunk of width W (kernel_pairs): exact
+    equality. The plain versions, one launch per torch op and column, run
+    once each, timed."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    a, b, la, lb = kernel_pairs(dev, W, L)
+    PB = a.shape[0]
+    fwd = (lambda: bk.banded_forward_adaptive(a, b, la, lb, W),
+           lambda: bk.banded_forward_adaptive_ref(a, b, la, lb, W))
+    dirs, offs, _, _ = fwd[0]()
+    steps = {("banded_forward_adaptive", None): fwd}
+    for w in k3_words:
+        steps[("adaptive_backtrack_cols", w)] = (
+            lambda w=w: bk.adaptive_backtrack_cols(dirs, offs, a, b, la, lb, W, w),
+            lambda w=w: bk.adaptive_backtrack_cols_ref(dirs, offs, a, b, la, lb, W, w))
+    results = {}
+    for (name, words), (kernel, plain) in steps.items():
+        got = kernel()
+        want, plain_ms = _timed_once(plain)
+        err = _max_abs_err(got, want)
+        ms = _time_ms(kernel, 5)
+        results[(name, W, words)] = _kernel_row(
+            name, W, words, PB, L, err, ms, plain_ms,
+            bound(name, a, b, lb, W, got[0] if words else None, words or 1, la))
+    return results
+
+
+def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
+                   dump: str | None = None) -> dict:
+    """K1a and K3a against their plain versions at every width of
+    KERNEL_WIDTHS; then main's search and correction again with
+    NECAT_TPU_NO_PALLAS (the adaptive band): records held to the JAX
+    package's default CPU run of the same inputs (JAX_CPU_MAIN_REFERENCE),
+    K1a and K3a launched and K1, K2 and K3 not. Returns the kernel rows."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.options import MapOptions
+    from necat_tpu_torch.overlap.overlapper import find_all_candidates
+    t_phase = time.perf_counter()
+    kernels = {}
+    for W in bk.KERNEL_WIDTHS:
+        kernels.update(check_adaptive_kernels(
+            dev, W, L=8192 if W == 128 else ADAPTIVE_L,
+            k3_words=(1, POLISH_WORDS) if W == POLISH_W else (1,)))
+    checks_s = time.perf_counter() - t_phase
+    store, main_cands, _, _ = main_inputs
+    os.environ["NECAT_TPU_NO_PALLAS"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bk.reset_launches()
+        t0 = time.perf_counter()
+        cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
+        call = Candidates.concat([cands, cands.swap_roles()])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recs = correct_reads(store, call, CnsOptions(), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launch_counts["adaptive"] = counts = _launches(bk)
+    finally:
+        os.environ.pop("NECAT_TPU_NO_PALLAS", None)
+    ncorr = len({r.tid for r in recs if r.corrected})
+    digest = records_digest(recs)
+    if dump:
+        dump_records(recs, dump)
+    print("adaptive " + json.dumps({
+        "candidates": len(cands), "records": len(recs), "corrected_reads": ncorr,
+        "digest": digest, "candidates_s": t1 - t0,
+        "correct_s": t2 - t1, "wall_s": t2 - t0, "corrected_reads_per_s": ncorr / (t2 - t0),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": _by_width(counts), "kernel_checks_s": checks_s,
+        "phase_s": time.perf_counter() - t_phase, "card": smi}), flush=True)
+    for f in dataclasses.fields(main_cands):
+        if not np.array_equal(getattr(cands, f.name), getattr(main_cands, f.name)):
+            raise AssertionError(f"adaptive: candidate field {f.name} differs from main's")
+    ran = {k for (k, _), n in counts["by_width"].items() if n}
+    if ran != set(ADAPTIVE) or not all(counts["by_width"].get((k, 128)) for k in ADAPTIVE):
+        raise AssertionError(f"adaptive: K1a and K3a must launch at 128 and no other kernel: "
+                             f"{_by_width(counts)}")
+    ref = JAX_CPU_MAIN_REFERENCE
+    rest = records_digest(recs, skip=MAIN_TIE_FLIPS)
+    flips = {str(r.tid): [r.left, r.right, len(r.seq)] for r in recs
+             if r.tid in MAIN_TIE_FLIPS}
+    print("adaptive reference " + json.dumps({
+        "digest_equal": digest == ref["digest"],
+        "digest_without_tie_flips": rest, "tie_flips": flips}), flush=True)
+    if (ncorr, rest) != (ref["corrected_reads"], ref["digest_without_tie_flips"]):
+        raise AssertionError(f"adaptive: {ncorr} reads, digest without the tie flips {rest}; "
+                             f"the JAX package's CPU run: {ref}")
+    for tid, (left, right, n) in ref["tie_flips"].items():
+        got = flips.get(tid)
+        if got is None or got[:2] != [left, right] or abs(got[2] - n) > 1:
+            raise AssertionError(f"adaptive: template {tid}: {got}; the JAX package's "
+                                 f"record: {[left, right, n]}")
+    print(f"adaptive: K1a and K3a equal their plain versions at {bk.KERNEL_WIDTHS}; main's "
+          f"records equal the JAX package's default CPU run but for the float32 tie of "
+          f"template(s) {MAIN_TIE_FLIPS} (digest {digest[:16]})", flush=True)
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "necat_tpu_torch")):
+        print("chip_smoke: necat_tpu_torch/ is not beside this script; run it from a "
+              "checkout of the repository; nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     os.environ["NECAT_TPU_MAX_STAGE_ERROR"] = "1"     # no stage retry may hide a failure
@@ -1482,9 +1688,16 @@ def main() -> int:
     check_index(dev, launch_counts, main_inputs, smi)
     check_devices(dev, launch_counts, main_inputs, cfg_path, smi)
     check_timing(dev, launch_counts, main_inputs, smi)
+    kernels.update(check_adaptive(dev, launch_counts, main_inputs, smi))
     check_stripes(cfg_path, smi)
+    elsewhere = {path: _by_width(c) for path, c in launch_counts.items() if path != "adaptive"
+                 and any(n for (k, _), n in c["by_width"].items() if k in ADAPTIVE)}
+    if elsewhere:
+        raise AssertionError(f"K1a/K3a launched outside phase 20: {elsewhere}")
     for (name, W, words), entry in kernels.items():
-        by_path = {path: (c["k3_by_words"].get((W, words), 0) if words
+        words_key = {"banded_backtrack_cols": "k3_by_words",
+                     "adaptive_backtrack_cols": "k3a_by_words"}.get(name)
+        by_path = {path: (c[words_key].get((W, words), 0) if words_key
                           else c["by_width"].get((name, W), 0))
                    for path, c in launch_counts.items()}
         entry["launches"] = sum(by_path.values())

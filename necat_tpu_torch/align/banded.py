@@ -1,15 +1,21 @@
-"""Batched static-band alignment extension from anchors.
+"""Batched banded alignment extension from anchors.
 
-Counterpart of the static-band (Pallas) branch of
-necat_tpu/align/banded.py:_extend_batch_jit. Each pair extends left over the
-reversed prefixes and right over the suffixes of its anchors; each side runs
-the K1 -> K3 kernels of banded_kernels (their plain versions for CPU
-tensors; K1 computes the mismatch encoding itself) and is clipped back to
-the last run of TAIL_MATCH matched columns (oc_aligner.c:223-259 retreat
-logic).
+Counterpart of necat_tpu/align/banded.py:_extend_batch_jit. Each pair
+extends left over the reversed prefixes and right over the suffixes of its
+anchors, and each side is clipped back to the last run of TAIL_MATCH matched
+columns (oc_aligner.c:223-259 retreat logic). Two bands, as in the JAX
+package:
+  - the static band (its Pallas branch, the default): the K1 -> K3 kernels
+    of banded_kernels (K1 computes the mismatch encoding itself);
+  - the adaptive band (its scan branch, under NECAT_TPU_NO_PALLAS, read at
+    each call): K1a -> K3a, the band moving toward the argmin third of each
+    column.
+Each kernel runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -17,6 +23,13 @@ from necat_tpu_torch.align import banded_kernels as bk
 from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DIAG, OP_PAD
 
 TAIL_MATCH = 8   # kOcaMatCnt (oc_aligner.c:9)
+
+
+def adaptive_band() -> bool:
+    """True under NECAT_TPU_NO_PALLAS: the JAX package's variable, read at
+    each call as its _use_pallas reads it, so that one environment runs one
+    band in both packages."""
+    return bool(os.environ.get("NECAT_TPU_NO_PALLAS"))
 
 
 def _gather_shifted(batch, src) -> torch.Tensor:
@@ -92,12 +105,19 @@ def extend_batch(qbatch, qlens, tbatch, tlens, anchor_q, anchor_t,
     la_full = torch.cat([anchor_q, qlens - anchor_q])
     lb_full = torch.cat([anchor_t, tlens - anchor_t])
     # clamp the length mismatch to W/4 so both end points sit near the middle
-    # lane of the constant-centre band; the tail clip removes the pure-indel
-    # tails this cuts (see necat_tpu/align/banded.py)
+    # lane of the constant-centre band (in both modes, as the JAX package
+    # does); the tail clip removes the pure-indel tails this cuts (see
+    # necat_tpu/align/banded.py)
     la = torch.minimum(la_full, lb_full + W // 4).to(torch.int32)
     lb = torch.minimum(lb_full, la_full + W // 4).to(torch.int32)
-    dirs, _ = bk.banded_forward(a, b, la, lb, W)
-    cols, insb, lead = bk.banded_backtrack_cols(dirs, la, lb, W, insb_words)
+    if adaptive_band():
+        dirs, offs, _, _ = bk.banded_forward_adaptive(a, b, la, lb, W)
+        cols, insb, lead = bk.adaptive_backtrack_cols(dirs, offs, a, b, la, lb, W,
+                                                      insb_words)
+        del offs
+    else:
+        dirs, _ = bk.banded_forward(a, b, la, lb, W)
+        cols, insb, lead = bk.banded_backtrack_cols(dirs, la, lb, W, insb_words)
     del dirs
     out = {}
     for side, rows in (("left", slice(0, B)), ("right", slice(B, 2 * B))):

@@ -1,10 +1,13 @@
-// Static-band alignment kernels for Hopper (sm_90a), bound to PyTorch with
-// ctypes through the plain C entry points at the end of this file.
+// Banded alignment kernels for Hopper (sm_90a), bound to PyTorch with ctypes
+// through the plain C entry points at the end of this file.
 //
-// All three kernels work in the DIAGONAL coordinates of the static band:
-// lane l of target column j holds query row i = j + l - ctr, with the
-// per-pair centre ctr = W/2 - floor((la - lb) / 2). The extension clamps
+// K1, K2 and K3 (the static band) work in the DIAGONAL coordinates: lane l
+// of target column j holds query row i = j + l - ctr, with the per-pair
+// centre ctr = W/2 - floor((la - lb) / 2). The extension clamps
 // |la - lb| <= W/4, so both alignment end points sit near the middle lane.
+// K1a and K3a (the adaptive band, NECAT_TPU_NO_PALLAS) work in ROW
+// coordinates: lane s of column j holds query row offs[j] + s, the band
+// moving 0-2 rows a column; their dirs byte is the op alone.
 //
 // Byte encodings (shared with necat_tpu_torch/align/banded_kernels.py):
 //   ENC  = mismatch | qbase << 1            (query base 0..3, pad 127)
@@ -605,6 +608,361 @@ banded_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict_
   if (t == 0) lead[p] = clampi(cur - ctr, 0, la);
 }
 
+// ------------------------------------------- K1a: adaptive-band forward
+// Replaces the scan of necat_tpu/align/banded.py:banded_forward (:48), the
+// JAX package's extension without Pallas (NECAT_TPU_NO_PALLAS): XLA code, no
+// pallas_call. ROW coordinates: lane s of column j holds query row
+// offs[j] + s. Before column j the band moves d = 0, 1 or 2 rows toward the
+// argmin third of column j-1 (d = 0 at column 1), off = clip(off + d, 0,
+// max(la, 0)); columns past lb are OP_PAD and freeze S and off. Output: dirs
+// bytes (the op alone), offs[0..MC], the last column's S, and the cost at
+// (la, lb). The arithmetic is the JAX scan's: INF = 2^20, neighbours outside
+// [0, W) read INF (so INF + 1 reaches the op compares), the chain clamped to
+// INF, rows past la set to INF, ties DIAG, then INS, then DEL, else PAD.
+//
+// Design: K1's tiling (a warp per pair below K1_WIDE_MIN, a block of W/8
+// threads from it), a thread holding V consecutive lanes.
+//  - the previous column's S sits in shared memory, a row per pair, so that
+//    the shifted neighbours s+d (left) and s+d-1 (diagonal) are two shared
+//    loads a lane whatever d is;
+//  - the argmin is a first-minimum reduction: the value with one
+//    __reduce_min_sync, then the first lane holding it with another (a
+//    packed value | lane key would need 33 bits at W = 4096), across warps
+//    through shared memory; it is taken at the end of each column, so that
+//    one barrier publishes both S and the per-warp minima;
+//  - the query base of each lane is read from a (the rows move by 0-2 a
+//    column, so they stay in L1); the target base of 32 columns at a time,
+//    a lane each, reaches the column with one shuffle;
+//  - the insertion chain is K1's prefix minimum (thread, warp, warps).
+// Barriers per column: one with a warp per pair (__syncwarp), two with a
+// block (the chain's cross-warp step and the end of the column).
+constexpr int K1A_BIG = 1 << 30;   // identity of the minima: above every x (<= INF + 1)
+
+template <int W>
+__global__ void __launch_bounds__(Tiling<W, K1_WIDE_MIN>::THREADS)
+banded_forward_adaptive_kernel(const uint8_t* __restrict__ a, int La,
+                               const uint8_t* __restrict__ b, int Lb,
+                               const int* __restrict__ la_, const int* __restrict__ lb_,
+                               uint8_t* __restrict__ dirs, int* __restrict__ offs,
+                               int* __restrict__ sfin, int* __restrict__ cost, int PB,
+                               int MC) {
+  using T = Tiling<W, K1_WIDE_MIN>;
+  constexpr int V = T::V, NW = T::NW;
+  __shared__ int s_prev[T::PAIRS][W];   // S of the last column, a row per pair
+  __shared__ int wtot[NW];              // inclusive chain total of each warp
+  __shared__ int wmin_v[NW], wmin_l[NW];   // each warp's minimum and its first lane
+  int p, t;
+  if (!pair_thread<T>(PB, p, t)) return;
+  const int lt = t & 31, wp = t >> 5;
+  int* Sp = s_prev[NW > 1 ? 0 : (threadIdx.x >> 5)];
+  const int la = la_[p], lb = lb_[p];
+  const int off_hi = la > 0 ? la : 0;
+  const uint8_t* ap = a + (size_t)p * La;
+  const uint8_t* bp = b + (size_t)p * Lb;
+  uint8_t* dp = dirs + (size_t)p * MC * W;
+  int* offp = offs + (size_t)p * (MC + 1);
+  auto sync = [&] {
+    if constexpr (NW > 1) __syncthreads(); else __syncwarp();
+  };
+  // first lane of the pair's minimum of D, after D is in shared memory
+  int D[V];
+  auto argmin = [&]() -> int {
+    int v = D[0], l = t * V;
+#pragma unroll
+    for (int s = 1; s < V; ++s)
+      if (D[s] < v) { v = D[s]; l = t * V + s; }
+    const int wv = __reduce_min_sync(FULL, v);
+    int wl = __reduce_min_sync(FULL, v == wv ? l : W);
+    if constexpr (NW > 1) {
+      if (lt == 0) { wmin_v[wp] = wv; wmin_l[wp] = wl; }
+      __syncthreads();
+      const int gv = __reduce_min_sync(FULL, lt < NW ? wmin_v[lt] : K1A_BIG);
+      wl = __reduce_min_sync(FULL, lt < NW && wmin_v[lt] == gv ? wmin_l[lt] : W);
+    } else {
+      __syncwarp();
+    }
+    return wl;
+  };
+  // lane k of the warp: the target base of column j0 + k + 1, b clipped to
+  // [0, Lb) as the JAX scan clips it
+  auto tile = [&](int j0) -> int { return bp[clampi(j0 + lt, 0, Lb - 1)]; };
+
+#pragma unroll
+  for (int s = 0; s < V; ++s) {
+    const int l = t * V + s;
+    D[s] = l <= la ? l : INF;
+    Sp[l] = D[s];
+  }
+  int m = argmin();
+  int off = 0;
+  if (t == 0) offp[0] = 0;
+  const int ncol = lb < MC ? (lb > 0 ? lb : 0) : MC;
+  int tb_next = tile(0);
+  for (int j0 = 0; j0 < ncol; j0 += 32) {            // a tile of 32 columns
+    const int tb_cur = tb_next;
+    tb_next = tile(j0 + 32);
+    const int nc = ncol - j0 < 32 ? ncol - j0 : 32;
+    for (int c = 0; c < nc; ++c) {
+      const int j = j0 + c + 1;
+      const int tb = __shfl_sync(FULL, tb_cur, c);
+      const int d0 = j == 1 ? 0 : (m > (2 * W) / 3 ? 2 : (m > W / 3 ? 1 : 0));
+      const int off_n = min(max(off + d0, 0), off_hi);
+      const int d = off_n - off;
+      off = off_n;
+      if (t == 0) offp[j] = off;
+      int diag[V], left[V], x[V];
+      bool outside[V];
+#pragma unroll
+      for (int s = 0; s < V; ++s) {
+        const int l = t * V + s, idx = l + d, row = off + l;
+        left[s] = (idx < W ? Sp[idx] : INF) + 1;
+        const int dg = idx >= 1 && idx - 1 < W ? Sp[idx - 1] : INF;
+        const int qb = __ldg(ap + clampi(row - 1, 0, La - 1));
+        diag[s] = row >= 1 ? dg + (qb != tb) : INF;
+        int A = min(left[s], diag[s]);
+        outside[s] = row > la;
+        if (outside[s]) A = INF;
+        x[s] = A - l;
+      }
+      // insertion chain: S[l] = min(lane + prefix-min of x, INF)
+#pragma unroll
+      for (int s = 1; s < V; ++s) x[s] = min(x[s], x[s - 1]);
+      int tot = x[V - 1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) tot = min(tot, __shfl_up_sync(FULL, tot, o));
+      int before = __shfl_up_sync(FULL, tot, 1);      // min of x over lanes < t*V
+      if (lt == 0) before = K1A_BIG;
+      if constexpr (NW > 1) {
+        if (lt == 31) wtot[wp] = tot;
+        __syncthreads();
+        before = min(before, __reduce_min_sync(FULL, lt < wp ? wtot[lt] : K1A_BIG));
+      }
+      int Sn[V];
+#pragma unroll
+      for (int s = 0; s < V; ++s)
+        Sn[s] = outside[s] ? INF : min(min(x[s], before) + t * V + s, INF);
+      // S of lane t*V-1 (its prefix is `before`); lane 0's up is INF itself
+      const int l0 = t * V;
+      const int up0 = l0 == 0 ? INF
+                    : (off + l0 - 1 > la ? INF : min(before + l0 - 1, INF)) + 1;
+      Bytes<V> out;
+#pragma unroll
+      for (int k = 0; k < Bytes<V>::N; ++k) out.w[k] = 0;
+#pragma unroll
+      for (int s = 0; s < V; ++s) {
+        const int up = s == 0 ? up0 : Sn[s - 1] + 1;
+        uint32_t op = Sn[s] == left[s] ? OP_DEL : OP_PAD;
+        op = Sn[s] == up ? OP_INS : op;
+        op = Sn[s] == diag[s] ? OP_DIAG : op;
+        out.w[s >> 2] |= op << (8 * (s & 3));
+      }
+      out.store(dp + (size_t)(j - 1) * W + t * V);
+      if constexpr (NW == 1) __syncwarp();            // every lane has read S
+#pragma unroll
+      for (int s = 0; s < V; ++s) {
+        D[s] = Sn[s];
+        Sp[t * V + s] = Sn[s];
+      }
+      m = argmin();
+    }
+  }
+  for (int j = ncol + 1 + t; j <= MC; j += 32 * NW) offp[j] = off;
+  fill_pad(dp, ncol, MC, W, t, 32 * NW);
+  const int slot = clampi(la - off, 0, W - 1);
+#pragma unroll
+  for (int s = 0; s < V; ++s) {
+    sfin[(size_t)p * W + t * V + s] = D[s];
+    if (t * V + s == slot) cost[p] = D[s];
+  }
+}
+
+// -------------------------------------- K3a: adaptive-band column backtrack
+// Replaces banded_traceback (:112) + ops_to_cols (:181) of
+// necat_tpu/align/banded.py (XLA code, no pallas_call): walks K1a's dirs and
+// offs from (la, lb) back to (0, 0) and writes the per-column encoding
+// directly: cols = op | match << 2 | qbase << 3 | k << 5, 1-3 insb words,
+// lead. The op walk it stands for reads slot clip(r - offs[j], 0, W-1) of
+// column j, forces DEL on row 0 and INS on column 0, and stops for good on
+// an OP_PAD byte; ops_to_cols then counts columns and query rows from the
+// start of the op string, i.e. from where the walk stopped. So the kernel
+// walks twice only when a walk stops on OP_PAD before (0, 0): the second
+// walk numbers columns and rows from that stop.
+//
+// One step per target column, as K3 (whose shared-memory ring of dirs rows,
+// filled with cp.async a half ahead, it reuses): the column's insertion run
+// under the entry row r ends at the highest "stop" lane <= clip(r - off, 0,
+// W-1), a lane whose op is not INS or that holds row 0; one
+// __reduce_max_sync of (lane + 1) << 8 | byte finds it (a second one across
+// warps with a block per pair). The clipped slot is read as the op walk
+// reads it: a stop at the clipped slot itself is the consumer at row r.
+// Match, the query base and the run's inserted bases come from a and b
+// (adaptive dirs carry the op alone); offs and b are loaded 32 columns at a
+// time, a lane each.
+template <int W>
+__global__ void __launch_bounds__(Tiling<W, K3_WIDE_MIN>::THREADS)
+adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict__ offs,
+                          const uint8_t* __restrict__ a, int La,
+                          const uint8_t* __restrict__ b, int Lb,
+                          const int* __restrict__ la_, const int* __restrict__ lb_,
+                          int* __restrict__ cols, int* __restrict__ insb,
+                          int* __restrict__ lead, int PB, int MC, int words) {
+  using T = Tiling<W, K3_WIDE_MIN>;
+  constexpr int V = T::V, NW = T::NW;
+  constexpr int H = 16384 / (W * T::PAIRS) < 16 ? 16384 / (W * T::PAIRS) : 16;
+  constexpr int RING = 2 * H;
+  constexpr int PIECES = H * W / 16;
+  __shared__ __align__(16) uint8_t ring_all[T::PAIRS][RING][W];
+  __shared__ int wkey[2][NW];
+  int p, t;
+  if (!pair_thread<T>(PB, p, t)) return;
+  const int lt = t & 31, wp = t >> 5;
+  uint8_t (*ring)[W] = ring_all[NW > 1 ? 0 : (threadIdx.x >> 5)];
+  const int la = la_[p], lb = lb_[p];
+  const uint8_t* dp = dirs + (size_t)p * MC * W;
+  const int* offp = offs + (size_t)p * (MC + 1);
+  const uint8_t* ap = a + (size_t)p * La;
+  const uint8_t* bp = b + (size_t)p * Lb;
+  int* cp = cols + (size_t)p * MC;
+  const int ncol = lb < MC ? (lb > 0 ? lb : 0) : MC;
+  auto sync = [&] {
+    if constexpr (NW > 1) __syncthreads(); else __syncwarp();
+  };
+  auto fill = [&](int from) {            // columns from `from` on: OP_PAD, no bases
+    for (int jc = from + t; jc < MC; jc += 32 * NW) {
+      cp[jc] = OP_PAD;
+      for (int w = 0; w < words; ++w) insb[((size_t)w * PB + p) * MC + jc] = 0;
+    }
+  };
+  auto fetch = [&](int chunk) {          // steps chunk*H .. into ring half chunk%2
+    for (int k = t; k < PIECES; k += 32 * NW) {
+      const int i = k / (W / 16), o = (k % (W / 16)) * 16;
+      const int s = chunk * H + i, row = ncol - 1 - s;
+      if (row >= 0) cp_async16(&ring[s % RING][o], dp + (size_t)row * W + o);
+    }
+    cp_async_commit();
+  };
+  const bool emits = NW == 1 || wp == 0;   // the warp that writes cols and insb
+  fill(ncol);
+  int r0 = 0, j0 = 0;                      // where column and row numbering start
+  int lead_v = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {                       // renumber from the stop: start afresh
+      sync();
+      fill(0);
+      sync();
+    }
+    Bytes<V> vn;
+    if (ncol > 0) {
+      fetch(0);
+      fetch(1);
+      cp_async_wait_one_pending();
+      sync();
+      vn.load(&ring[0][t * V]);
+    }
+    int r = la;
+    bool stopped = false;
+    int colv = 0, insv0 = 0, insv1 = 0, insv2 = 0;   // lane s%32 keeps step s
+    int tile_off = 0, tile_b = 0;
+    // store the buffered steps s - c .. s - c + n - 1 (lane i holds step s - c + i)
+    auto flush = [&](int s, int c, int n) {
+      if (lt < n) {
+        const int jc = ncol - 1 - (s - c + lt) - j0;
+        cp[jc] = colv;
+        insb[(size_t)p * MC + jc] = insv0;
+        if (words > 1) insb[((size_t)PB + p) * MC + jc] = insv1;
+        if (words > 2) insb[((size_t)2 * PB + p) * MC + jc] = insv2;
+      }
+    };
+    for (int s = 0; s < ncol; ++s) {
+      const int j = ncol - s;                          // 1-based column
+      const int c = s & 31;
+      const Bytes<V> v = vn;
+      const bool boundary = s + 1 < ncol && (s + 1) % H == 0;
+      if (s + 1 < ncol && !boundary) vn.load(&ring[(s + 1) % RING][t * V]);
+      if (c == 0) {                                    // offs and b of 32 columns
+        const int jj = j - lt;
+        tile_off = offp[jj > 0 ? jj : 0];
+        tile_b = bp[clampi(jj - 1 - j0, 0, Lb - 1)];
+      }
+      const int off = __shfl_sync(FULL, tile_off, c);
+      const int tb = __shfl_sync(FULL, tile_b, c);
+      const int cur = clampi(r - off, 0, W - 1);
+      int key = 0;                                     // (lane + 1) << 8 | byte
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int lane = t * V + u, byte = v.get(u);
+        if (lane <= cur && ((byte & 3) != OP_INS || off + lane == 0))
+          key = ((lane + 1) << 8) | byte;
+      }
+      key = __reduce_max_sync(FULL, key);
+      if constexpr (NW > 1) {
+        const int par = s & 1;
+        if (lt == 0) wkey[par][wp] = key;
+        __syncthreads();
+        key = __reduce_max_sync(FULL, lt < NW ? wkey[par][lt] : 0);
+      }
+      const int sel = (key >> 8) - 1;
+      int row, k;                                      // the consumer's row, the run
+      if (r == 0) { row = 0; k = 0; }                  // row 0: DEL
+      else if (sel == cur) { row = r; k = 0; }         // a stop where the walk reads
+      else if (sel >= 0) { row = off + sel; k = r - row; }
+      else { row = 0; k = r; }                         // INS down to row 0, then DEL
+      const int o = row == 0 ? OP_DEL : (key & 3);
+      if (o == OP_PAD) {                               // the op walk stops here
+        if (emits && c) flush(s, c, c);
+        lead_v = k;
+        r0 = row;
+        j0 = j;
+        stopped = true;
+        break;
+      }
+      if (emits) {
+        int match = 0, qbase = 0;
+        if (o == OP_DIAG) {
+          qbase = __ldg(ap + clampi(row - 1 - r0, 0, La - 1));
+          match = qbase == tb;
+        }
+        if (lt == c) colv = (k << 5) | (qbase << 3) | (match << 2) | o;
+        // lane d: run rank d+1 from the start (row + d + 1) and rank d+1
+        // from the end (r - d), both into word d/7
+        const int kc = min(k, N_INSB * words);
+        unsigned bits = 0;
+        if (lt < kc) {
+          const int d = lt % N_INSB;
+          bits = (unsigned)__ldg(ap + clampi(row + lt - r0, 0, La - 1)) << (2 * d)
+               | (unsigned)__ldg(ap + clampi(r - lt - 1 - r0, 0, La - 1)) << (14 + 2 * d);
+        }
+        const int wd = lt / N_INSB;
+        const unsigned b0 = __reduce_or_sync(FULL, wd == 0 ? bits : 0u);
+        if (lt == c) insv0 = (int)b0;
+        if (words > 1) {
+          const unsigned b1 = __reduce_or_sync(FULL, wd == 1 ? bits : 0u);
+          if (lt == c) insv1 = (int)b1;
+        }
+        if (words > 2) {
+          const unsigned b2 = __reduce_or_sync(FULL, wd == 2 ? bits : 0u);
+          if (lt == c) insv2 = (int)b2;
+        }
+        if (c == 31 || s == ncol - 1) flush(s, c, c + 1);
+      }
+      r = o == OP_DIAG ? row - 1 : row;
+      if (boundary) {                                  // next half landed; refill this one
+        cp_async_wait_all();
+        sync();
+        fetch((s + 1) / H + 1);
+        vn.load(&ring[(s + 1) % RING][t * V]);
+      }
+    }
+    cp_async_wait_all();
+    if (!stopped) {
+      lead_v = r - r0;                                 // INS on column 0
+      break;
+    }
+    if (pass == 1) break;
+  }
+  if (t == 0) lead[p] = lead_v;
+}
+
 // Launch<W>::run for a width of KERNEL_WIDTHS; any other width runs
 // Launch<0> where the launcher has one, else is refused.
 template <template <int> class Launch, typename... Args>
@@ -662,6 +1020,30 @@ struct BacktrackLaunch {
   }
 };
 
+template <int W>
+struct ForwardAdaptiveLaunch {
+  static constexpr bool ANY_WIDTH = false;
+  static void run(const uint8_t* a, int La, const uint8_t* b, int Lb, const int* la,
+                  const int* lb, uint8_t* dirs, int* offs, int* sfin, int* cost, int PB,
+                  int MC, cudaStream_t s) {
+    using T = Tiling<W, K1_WIDE_MIN>;
+    banded_forward_adaptive_kernel<W><<<T::blocks(PB), T::THREADS, 0, s>>>(
+        a, La, b, Lb, la, lb, dirs, offs, sfin, cost, PB, MC);
+  }
+};
+
+template <int W>
+struct AdaptiveBacktrackLaunch {
+  static constexpr bool ANY_WIDTH = false;
+  static void run(const uint8_t* dirs, const int* offs, const uint8_t* a, int La,
+                  const uint8_t* b, int Lb, const int* la, const int* lb, int* cols,
+                  int* insb, int* lead, int PB, int MC, int words, cudaStream_t s) {
+    using T = Tiling<W, K3_WIDE_MIN>;
+    adaptive_backtrack_kernel<W><<<T::blocks(PB), T::THREADS, 0, s>>>(
+        dirs, offs, a, La, b, Lb, la, lb, cols, insb, lead, PB, MC, words);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -693,6 +1075,27 @@ int necat_banded_backtrack(const void* dirs, const void* la, const void* lb,
   return dispatch_width<BacktrackLaunch>(
       W, (const uint8_t*)dirs, (const int*)la, (const int*)lb, (int*)cols,
       (int*)insb, (int*)lead, PB, MC, words, (cudaStream_t)stream);
+}
+
+int necat_banded_forward_adaptive(const void* a, int La, const void* b, int Lb,
+                                  const void* la, const void* lb, void* dirs, void* offs,
+                                  void* sfin, void* cost, int PB, int MC, int W,
+                                  void* stream) {
+  if (La < 1 || Lb < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_width<ForwardAdaptiveLaunch>(
+      W, (const uint8_t*)a, La, (const uint8_t*)b, Lb, (const int*)la, (const int*)lb,
+      (uint8_t*)dirs, (int*)offs, (int*)sfin, (int*)cost, PB, MC, (cudaStream_t)stream);
+}
+
+int necat_adaptive_backtrack(const void* dirs, const void* offs, const void* a, int La,
+                             const void* b, int Lb, const void* la, const void* lb,
+                             void* cols, void* insb, void* lead, int PB, int MC, int W,
+                             int words, void* stream) {
+  if (words < 1 || words > 3 || La < 1 || Lb < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_width<AdaptiveBacktrackLaunch>(
+      W, (const uint8_t*)dirs, (const int*)offs, (const uint8_t*)a, La, (const uint8_t*)b,
+      Lb, (const int*)la, (const int*)lb, (int*)cols, (int*)insb, (int*)lead, PB, MC, words,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

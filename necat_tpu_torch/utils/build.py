@@ -29,6 +29,10 @@ SIGNATURES = {
     "necat_diag_sub_matrix": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "necat_banded_forward": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "necat_banded_backtrack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "necat_banded_forward_adaptive": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _P],
+    "necat_adaptive_backtrack": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
 }
 
 

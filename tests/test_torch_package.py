@@ -272,3 +272,89 @@ def test_cuda_index_build_and_device_lists(cuda_device, monkeypatch):
     two = correct_reads(rs, call, co, device=devs)
     assert [(r.tid, r.left, r.right, r.corrected, r.seq.tobytes()) for r in one] == \
         [(r.tid, r.left, r.right, r.corrected, r.seq.tobytes()) for r in two]
+
+
+# ------------------------------------------- adaptive band (K1a, K3a) on the card
+
+def random_walk_inputs(seed, PB=16, MC=96, L=128, W=64):
+    """K3a inputs with random dirs bytes (every op, OP_PAD among them, high
+    bits set) and nondecreasing offs: walks that leave the band, clip their
+    slot, and stop on an OP_PAD before the origin. numpy arrays."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.integers(0, 256, (PB, MC, W)).astype(np.uint8)
+    dirs[rng.random((PB, MC, W)) < 0.97] &= 0xFC         # mostly DIAG, few PAD
+    dirs |= (rng.random((PB, MC, W)) < 0.3).astype(np.uint8) * 2   # INS runs
+    offs = np.cumsum(rng.integers(0, 3, (PB, MC + 1)), axis=1).astype(np.int32)
+    offs[:, 0] = 0
+    la = rng.integers(0, L, PB).astype(np.int32)
+    lb = rng.integers(0, MC + 1, PB).astype(np.int32)
+    la[0], lb[1] = 0, 0
+    a = rng.integers(0, 4, (PB, L)).astype(np.uint8)
+    b = rng.integers(0, 4, (PB, MC)).astype(np.uint8)
+    return dirs, offs, a, b, la, lb
+
+
+def _check_adaptive(cpu, dev, W, words):
+    """K1a and K3a on the card equal their plain versions on the CPU, every
+    output byte for byte, one launch each; returns the plain cols."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    before = dict(bk.launches_by_width)
+    fwd_c = bk.banded_forward_adaptive(*cpu, W)
+    fwd_d = bk.banded_forward_adaptive(*dev, W)
+    torch.cuda.synchronize()
+    for x, y in zip(fwd_d, fwd_c, strict=True):
+        assert torch.equal(x.cpu(), y)
+    out_c = bk.adaptive_backtrack_cols(*fwd_c[:2], *cpu, W, words)
+    out_d = bk.adaptive_backtrack_cols(*fwd_d[:2], *dev, W, words)
+    torch.cuda.synchronize()
+    assert torch.equal(out_d[0].cpu(), out_c[0])
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1], strict=True))
+    assert torch.equal(out_d[2].cpu(), out_c[2])
+    for name in ("banded_forward_adaptive", "adaptive_backtrack_cols"):
+        assert bk.launches_by_width[(name, W)] == before.get((name, W), 0) + 1
+    return out_c[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,words", [(64, 1), (128, 1), (128, 3), (256, 3), (512, 1),
+                                     (1024, 3), (2048, 1), (4096, 1)])
+def test_cuda_adaptive_kernels_match_plain(cuda_device, W, words):
+    """K1a and K3a at every width of KERNEL_WIDTHS (a warp per pair below
+    512 in K1a and 1024 in K3a, a block from there), PB 37 (not a multiple
+    of the pairs per block); pair 0 with la = 0, pair 1 with a query far
+    shorter than its target (its end outside the band)."""
+    PB, L = 37, 1024
+    cpu = _pairs(W + words + 1, PB, L, W)
+    cpu[2][0] = 0
+    cpu[2][1] = cpu[3][1] // 2 + 1
+    cols = _check_adaptive(cpu, [x.to(cuda_device) for x in cpu], W, words)
+    assert (cols >> 5).max() > 0                   # insertion runs were exercised
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_kernels_no_pairs(cuda_device):
+    """PB = 0: empty outputs, no launch."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    z = torch.zeros((0, 256), dtype=torch.uint8, device=cuda_device)
+    n = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    before = dict(bk.launches_by_width)
+    dirs, offs, s_fin, cost = bk.banded_forward_adaptive(z, z, n, n, 64)
+    assert dirs.shape == (0, 256, 64) and offs.shape == (0, 257) and cost.shape == (0,)
+    cols, insb, lead = bk.adaptive_backtrack_cols(dirs, offs, z, z, n, n, 64, 3)
+    assert cols.shape == (0, 256) and len(insb) == 3 and lead.shape == (0,)
+    assert dict(bk.launches_by_width) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,words", [(64, 1), (64, 3), (1024, 3)])
+def test_cuda_adaptive_backtrack_random_walks(cuda_device, W, words):
+    """K3a on random dirs and offs (walks stopped on OP_PAD, slots clipped at
+    both band edges) equals its plain version."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    arrs = [torch.from_numpy(x) for x in random_walk_inputs(W + words, W=W)]
+    out_c = bk.adaptive_backtrack_cols(*arrs, W, words)
+    out_d = bk.adaptive_backtrack_cols(*[x.to(cuda_device) for x in arrs], W, words)
+    torch.cuda.synchronize()
+    assert torch.equal(out_d[0].cpu(), out_c[0])
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1], strict=True))
+    assert torch.equal(out_d[2].cpu(), out_c[2])
