@@ -131,7 +131,9 @@ Phases, each failing the run on error:
              kernel may, and the records are held to the JAX package's own
              default run of this set on the CPU (JAX_CPU_MAIN_REFERENCE,
              scripts/jax_main_reference.py). K1a and K3a may launch in no
-             other phase.
+             other phase. The "adaptive/static" line gives K1a/K1 and K3a/K3
+             (1 insb word) at W=128 on the same kernel_pairs chunk, from the
+             rows of this phase and of phase 3.
 Phases 17, 18, 19 and 20 run before 16, which empties this process's
 allocator for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
@@ -1652,6 +1654,22 @@ def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
     return kernels
 
 
+def adaptive_ratios(kernels: dict, W: int = 128) -> dict:
+    """K1a/K1 and K3a/K3 (1 insb word) at width W from the kernel rows, all
+    timed on the same kernel_pairs chunk (L=8192); printed on one line."""
+    pairs = {"K1a/K1": ("banded_forward_adaptive", "banded_forward", None),
+             "K3a/K3": ("adaptive_backtrack_cols", "banded_backtrack_cols", 1)}
+    out = {}
+    for what, (adaptive, static, words) in pairs.items():
+        ka, ks = kernels[(adaptive, W, words)], kernels[(static, W, words)]
+        if (ka["L"], ka["PB"]) != (ks["L"], ks["PB"]):
+            raise AssertionError(f"{what}: rows of different chunks")
+        out[what] = ka["ms"] / ks["ms"]
+        out[what.split("/")[0] + "_ms"], out[what.split("/")[1] + "_ms"] = ka["ms"], ks["ms"]
+    print(f"adaptive/static W={W} " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
@@ -1689,6 +1707,7 @@ def main() -> int:
     check_devices(dev, launch_counts, main_inputs, cfg_path, smi)
     check_timing(dev, launch_counts, main_inputs, smi)
     kernels.update(check_adaptive(dev, launch_counts, main_inputs, smi))
+    adaptive_ratios(kernels)
     check_stripes(cfg_path, smi)
     elsewhere = {path: _by_width(c) for path, c in launch_counts.items() if path != "adaptive"
                  and any(n for (k, _), n in c["by_width"].items() if k in ADAPTIVE)}

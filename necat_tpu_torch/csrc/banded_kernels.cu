@@ -620,22 +620,46 @@ banded_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict_
 // [0, W) read INF (so INF + 1 reaches the op compares), the chain clamped to
 // INF, rows past la set to INF, ties DIAG, then INS, then DEL, else PAD.
 //
-// Design: K1's tiling (a warp per pair below K1_WIDE_MIN, a block of W/8
-// threads from it), a thread holding V consecutive lanes.
-//  - the previous column's S sits in shared memory, a row per pair, so that
-//    the shifted neighbours s+d (left) and s+d-1 (diagonal) are two shared
-//    loads a lane whatever d is;
-//  - the argmin is a first-minimum reduction: the value with one
-//    __reduce_min_sync, then the first lane holding it with another (a
-//    packed value | lane key would need 33 bits at W = 4096), across warps
-//    through shared memory; it is taken at the end of each column, so that
-//    one barrier publishes both S and the per-warp minima;
-//  - the query base of each lane is read from a (the rows move by 0-2 a
-//    column, so they stay in L1); the target base of 32 columns at a time,
-//    a lane each, reaches the column with one shuffle;
-//  - the insertion chain is K1's prefix minimum (thread, warp, warps).
-// Barriers per column: one with a warp per pair (__syncwarp), two with a
-// block (the chain's cross-warp step and the end of the column).
+// Bound: as K1's, the chain of up to MC dependent columns of one pair, at
+// about 8 warps per SM (a launch holds at most 1024 pairs); the roofline
+// (dirs written once: bytes) is about 10 times below it. A first version
+// had four things on that chain that K1's lacks: the last column's S
+// through a shared-memory row and a __syncwarp, a dependent two-step argmin,
+// a global query load a lane after it, and two barriers a column with a
+// block per pair. This design keeps K1's tiling and chain (a warp per
+// pair below K1_WIDE_MIN, a block of W/8 threads from it; thread t holds
+// lanes l0 = t*V .. l0+V-1) and puts the band's shift beside the chain:
+//  - the last column's neighbours come by shuffles: the shift d is the same
+//    for the whole pair, so lane l0+s reads the last column at l0+s+d (left)
+//    and l0+s+d-1 (diagonal), i.e. the thread's own V values, the value of
+//    lane l0-1 (rebuilt from the chain's `before`, no exchange) and the
+//    first two of thread t+1 (two __shfl_down_sync at the top of the
+//    column, which do not wait for d), picked by d with two selects each;
+//  - the band decision, not the argmin: d is the third (0, 1, 2 for lanes
+//    [0, W/3], (W/3, 2W/3], (2W/3, W)) of the first argmin m of S. Lane l's
+//    "local" value, its thread's prefix-min of x + l, is at least S[l] (or,
+//    past la, above a smaller value of an earlier lane) and equals S[m] at m,
+//    and an earlier lane's is above S[m]. So the least of min(local, INF)
+//    << 2 | third over the lanes carries m's third in its two low bits: one
+//    multiply-add and one min a lane, then one __reduce_min_sync, issued
+//    before the scan and needing nothing of it (the first version took two
+//    dependent reductions for the value and the first lane). With a block
+//    per pair each warp publishes its key in the same parity-buffered shared
+//    write as its chain total and its first two prefix values: one
+//    __syncthreads per column (the first version: two);
+//  - the query bases stay off the chain: a thread's V bases slide by d in
+//    registers (a funnel shift), those of thread t+1 come by one more
+//    shuffle, and those entering a warp's last lane from a window of the
+//    query row past the warp, a byte pair a lane, read with one __shfl_sync
+//    a column; it moves 16 bytes at a time and its next pairs are loaded 8
+//    or more columns ahead (a load in the column stalled the warp every
+//    column: 0.7 of 3.6 ms at W = 128, L = 8192 on an H100 80GB HBM3 at
+//    700 W, scripts/torch_kernel_ab.py). Across a warp boundary the last lane
+//    rebuilds the next warp's first two S values from the published values,
+//    as K1 does; offs are stored 32 columns at a time.
+// Where the window moves is set per tiling, as measured (ptxas schedules the
+// column differently): with a warp per pair right after the shift, with a
+// block at the end of the column (PERF.md).
 constexpr int K1A_BIG = 1 << 30;   // identity of the minima: above every x (<= INF + 1)
 
 template <int W>
@@ -647,107 +671,182 @@ banded_forward_adaptive_kernel(const uint8_t* __restrict__ a, int La,
                                int* __restrict__ sfin, int* __restrict__ cost, int PB,
                                int MC) {
   using T = Tiling<W, K1_WIDE_MIN>;
-  constexpr int V = T::V, NW = T::NW;
-  __shared__ int s_prev[T::PAIRS][W];   // S of the last column, a row per pair
-  __shared__ int wtot[NW];              // inclusive chain total of each warp
-  __shared__ int wmin_v[NW], wmin_l[NW];   // each warp's minimum and its first lane
+  constexpr int V = T::V, NW = T::NW, NWD = Bytes<V>::N;
+  constexpr int UNROLL = NW > 1 ? K1_UNROLL_BLOCK : K1_UNROLL_WARP;
+  constexpr int R1 = W / 3 + 1, R2 = (2 * W) / 3 + 1;   // first lanes of thirds 1 and 2
+  static_assert(V >= 2, "lanes l0 + V and l0 + V + 1 are thread t+1's");
+  __shared__ int wtot[2][NW];        // inclusive chain total of each warp
+  __shared__ int xfirst[2][2][NW];   // prefix-min of x at each warp's first two lanes
+  __shared__ int wkey[2][NW];        // each warp's band-decision key
   int p, t;
   if (!pair_thread<T>(PB, p, t)) return;
   const int lt = t & 31, wp = t >> 5;
-  int* Sp = s_prev[NW > 1 ? 0 : (threadIdx.x >> 5)];
   const int la = la_[p], lb = lb_[p];
   const int off_hi = la > 0 ? la : 0;
   const uint8_t* ap = a + (size_t)p * La;
   const uint8_t* bp = b + (size_t)p * Lb;
   uint8_t* dp = dirs + (size_t)p * MC * W;
   int* offp = offs + (size_t)p * (MC + 1);
-  auto sync = [&] {
-    if constexpr (NW > 1) __syncthreads(); else __syncwarp();
-  };
-  // first lane of the pair's minimum of D, after D is in shared memory
-  int D[V];
-  auto argmin = [&]() -> int {
-    int v = D[0], l = t * V;
+  const int l0 = t * V;                         // this thread's first lane
+  const int l_end = (wp + 1) * 32 * V;          // the first lane past this warp
+  const bool inner = NW > 1 && wp < NW - 1;     // a warp with another after it
+  // query base a[i], clipped to [0, La) as the JAX scan clips it (lane l of a
+  // column holds row off + l and compares a[off + l - 1])
+  auto qa = [&](int i) -> uint32_t { return __ldg(ap + clampi(i, 0, La - 1)); };
+  // lane k of the warp: the target base of column j0 + k + 1, clipped
+  auto tile = [&](int j0) -> int { return __ldg(bp + clampi(j0 + lt, 0, Lb - 1)); };
+  // the band decision: lane l0 + s's key, min(local value, INF) << 2 | its
+  // third, is min(4 * x[s] + kc[s], 4 * INF + third); over the thread the
+  // clamp is kinf, its first lane's
+  int kc[V];
 #pragma unroll
-    for (int s = 1; s < V; ++s)
-      if (D[s] < v) { v = D[s]; l = t * V + s; }
-    const int wv = __reduce_min_sync(FULL, v);
-    int wl = __reduce_min_sync(FULL, v == wv ? l : W);
-    if constexpr (NW > 1) {
-      if (lt == 0) { wmin_v[wp] = wv; wmin_l[wp] = wl; }
-      __syncthreads();
-      const int gv = __reduce_min_sync(FULL, lt < NW ? wmin_v[lt] : K1A_BIG);
-      wl = __reduce_min_sync(FULL, lt < NW && wmin_v[lt] == gv ? wmin_l[lt] : W);
-    } else {
-      __syncwarp();
-    }
-    return wl;
-  };
-  // lane k of the warp: the target base of column j0 + k + 1, b clipped to
-  // [0, Lb) as the JAX scan clips it
-  auto tile = [&](int j0) -> int { return bp[clampi(j0 + lt, 0, Lb - 1)]; };
+  for (int s = 0; s < V; ++s) kc[s] = 4 * (l0 + s) + (l0 + s >= R1) + (l0 + s >= R2);
+  const int kinf = 4 * INF + (l0 >= R1) + (l0 >= R2);
 
+  int D[V];                        // S of the last column
+  Bytes<V> q;                      // q[s] = a[off + l0 + s - 1]
+#pragma unroll
+  for (int k = 0; k < NWD; ++k) q.w[k] = 0;
 #pragma unroll
   for (int s = 0; s < V; ++s) {
-    const int l = t * V + s;
-    D[s] = l <= la ? l : INF;
-    Sp[l] = D[s];
+    D[s] = l0 + s <= la ? l0 + s : INF;
+    q.w[s >> 2] |= qa(l0 + s - 1) << (8 * (s & 3));
   }
-  int m = argmin();
-  int off = 0;
+  int sup = (t == 0 || l0 - 1 > la) ? INF : l0 - 1;          // S of lane l0 - 1
+  int rn0 = inner && l_end <= la ? l_end : INF;              // S of lanes l_end and
+  int rn1 = inner && l_end + 1 <= la ? l_end + 1 : INF;      // l_end + 1 (lane 31)
+  // the bases entering the warp's last lane, a[off + l_end - 1 + e] for e = 0,
+  // 1, come from a window of the query row past the warp's lanes: lane k
+  // holds a[wb + k] | a[wb + k + 1] << 8; the window moves 16 bytes at a
+  // time, and the pairs of its next 16 are loaded 8 or more columns before
+  // they are read
+  int wb = l_end - 1;                                        // the window's first byte
+  uint32_t win = qa(wb + lt) | qa(wb + lt + 1) << 8;
+  uint32_t nx0 = qa(wb + 16 + lt) | qa(wb + 17 + lt) << 8;  // the next 16
+  int dkey = 0;                    // the last column's band-decision key (d = 0 first)
+  int off = 0, off_kept = 0;       // lane c keeps column j0 + c + 1's off
   if (t == 0) offp[0] = 0;
+  // after column j0 + c + 1's shift: keep its off, move the window (the
+  // same for the whole warp) once off has gone 16 rows past its start
+  auto move_window = [&](int c) {
+    if (lt == c) off_kept = off;
+    if (off + l_end - 1 - wb >= 16) {
+      wb += 16;
+      win = nx0;
+      nx0 = qa(wb + 16 + lt) | qa(wb + 17 + lt) << 8;
+    }
+  };
   const int ncol = lb < MC ? (lb > 0 ? lb : 0) : MC;
   int tb_next = tile(0);
   for (int j0 = 0; j0 < ncol; j0 += 32) {            // a tile of 32 columns
     const int tb_cur = tb_next;
     tb_next = tile(j0 + 32);
     const int nc = ncol - j0 < 32 ? ncol - j0 : 32;
+#pragma unroll (UNROLL)
     for (int c = 0; c < nc; ++c) {
       const int j = j0 + c + 1;
-      const int tb = __shfl_sync(FULL, tb_cur, c);
-      const int d0 = j == 1 ? 0 : (m > (2 * W) / 3 ? 2 : (m > W / 3 ? 1 : 0));
-      const int off_n = min(max(off + d0, 0), off_hi);
+      const uint32_t tb4 = (uint32_t)__shfl_sync(FULL, tb_cur, c) * 0x01010101u;
+      // lanes l0 + V and l0 + V + 1 of the last column (S) and their bases
+      int n0 = __shfl_down_sync(FULL, D[0], 1);
+      int n1 = __shfl_down_sync(FULL, D[1], 1);
+      uint32_t nb = __shfl_down_sync(FULL, q.w[0], 1);        // bytes 0 and 1
+      const uint32_t enter = __shfl_sync(FULL, win, off + l_end - 1 - wb);
+      if (lt == 31) {
+        n0 = rn0;
+        n1 = rn1;
+        nb = enter;
+      }
+      // the shift toward the argmin third of the last column
+      const int dd = dkey & 3;
+      const int off_n = min(off + dd, off_hi);
       const int d = off_n - off;
       off = off_n;
-      if (t == 0) offp[j] = off;
+      if constexpr (NW == 1) move_window(c);         // here with a warp: faster
+      {                                               // slide the bases by d
+        uint32_t ext[NWD + 1];
+#pragma unroll
+        for (int k = 0; k < NWD; ++k) ext[k] = q.w[k];
+        if constexpr (V % 4 == 0) {
+          ext[NWD] = nb;
+        } else {
+          ext[NWD - 1] |= nb << (8 * (V % 4));
+          ext[NWD] = 0;
+        }
+#pragma unroll
+        for (int k = 0; k < NWD; ++k) q.w[k] = __funnelshift_r(ext[k], ext[k + 1], 8 * d);
+        if constexpr (V % 4 != 0) q.w[NWD - 1] &= (1u << (8 * (V % 4))) - 1;
+      }
+      int Sd[V + 1];                                  // S of lane l0 + i + d - 1, last column
+      {
+        int Sx[V + 3];                                // lanes l0 - 1 .. l0 + V + 1
+        Sx[0] = sup;
+#pragma unroll
+        for (int s = 0; s < V; ++s) Sx[s + 1] = D[s];
+        Sx[V + 1] = n0;
+        Sx[V + 2] = n1;
+#pragma unroll
+        for (int i = 0; i <= V; ++i) Sd[i] = d == 0 ? Sx[i] : (d == 1 ? Sx[i + 1] : Sx[i + 2]);
+      }
+      uint32_t ne[NWD];                               // 1 per query byte != target
+#pragma unroll
+      for (int k = 0; k < NWD; ++k) ne[k] = bytes_ne(q.w[k], tb4);
       int diag[V], left[V], x[V];
       bool outside[V];
+      const int last_in = la - off;                   // lanes past it are rows past la
 #pragma unroll
       for (int s = 0; s < V; ++s) {
-        const int l = t * V + s, idx = l + d, row = off + l;
-        left[s] = (idx < W ? Sp[idx] : INF) + 1;
-        const int dg = idx >= 1 && idx - 1 < W ? Sp[idx - 1] : INF;
-        const int qb = __ldg(ap + clampi(row - 1, 0, La - 1));
-        diag[s] = row >= 1 ? dg + (qb != tb) : INF;
+        left[s] = Sd[s + 1] + 1;
+        diag[s] = Sd[s] + (int)((ne[s >> 2] >> (8 * (s & 3))) & 1);
+        if (s == 0 && off + l0 == 0) diag[s] = INF;  // row 0
         int A = min(left[s], diag[s]);
-        outside[s] = row > la;
+        outside[s] = l0 + s > last_in;
         if (outside[s]) A = INF;
-        x[s] = A - l;
+        x[s] = A - (l0 + s);
       }
       // insertion chain: S[l] = min(lane + prefix-min of x, INF)
 #pragma unroll
       for (int s = 1; s < V; ++s) x[s] = min(x[s], x[s - 1]);
-      int tot = x[V - 1];
+      const int xt = x[V - 1];
+      // the band decision's key: the least of the lanes' keys, whose low two
+      // bits are the third of the column's first argmin
+      int key = kinf;
+#pragma unroll
+      for (int s = 0; s < V; ++s) key = min(key, 4 * x[s] + kc[s]);
+      dkey = __reduce_min_sync(FULL, key);
+      int tot = xt;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) tot = min(tot, __shfl_up_sync(FULL, tot, o));
-      int before = __shfl_up_sync(FULL, tot, 1);      // min of x over lanes < t*V
+      int before = __shfl_up_sync(FULL, tot, 1);      // min of x over lanes < l0
       if (lt == 0) before = K1A_BIG;
       if constexpr (NW > 1) {
-        if (lt == 31) wtot[wp] = tot;
+        const int par = j & 1;
+        if (lt == 31) wtot[par][wp] = tot;
+        if (lt == 0) {
+          xfirst[par][0][wp] = x[0];
+          xfirst[par][1][wp] = x[1];
+          wkey[par][wp] = dkey;
+        }
         __syncthreads();
-        before = min(before, __reduce_min_sync(FULL, lt < wp ? wtot[lt] : K1A_BIG));
+        const int cross = __reduce_min_sync(FULL, lt < wp ? wtot[par][lt] : K1A_BIG);
+        dkey = __reduce_min_sync(FULL, lt < NW ? wkey[par][lt] : K1A_BIG);
+        before = min(before, cross);
+        if (lt == 31 && inner) {                      // lanes l_end, l_end + 1, this column
+          const int C = min(cross, tot);
+          rn0 = off + l_end > la ? INF : min(min(C, xfirst[par][0][wp + 1]) + l_end, INF);
+          rn1 = off + l_end + 1 > la ? INF
+              : min(min(C, xfirst[par][1][wp + 1]) + l_end + 1, INF);
+        }
       }
       int Sn[V];
 #pragma unroll
       for (int s = 0; s < V; ++s)
-        Sn[s] = outside[s] ? INF : min(min(x[s], before) + t * V + s, INF);
-      // S of lane t*V-1 (its prefix is `before`); lane 0's up is INF itself
-      const int l0 = t * V;
-      const int up0 = l0 == 0 ? INF
-                    : (off + l0 - 1 > la ? INF : min(before + l0 - 1, INF)) + 1;
+        Sn[s] = outside[s] ? INF : min(min(x[s], before) + l0 + s, INF);
+      // S of lane l0 - 1 (its prefix is `before`); lane 0's up is INF itself
+      sup = (t == 0 || l0 - 1 > last_in) ? INF : min(before + l0 - 1, INF);
+      const int up0 = t == 0 ? INF : sup + 1;
       Bytes<V> out;
 #pragma unroll
-      for (int k = 0; k < Bytes<V>::N; ++k) out.w[k] = 0;
+      for (int k = 0; k < NWD; ++k) out.w[k] = 0;
 #pragma unroll
       for (int s = 0; s < V; ++s) {
         const int up = s == 0 ? up0 : Sn[s - 1] + 1;
@@ -755,24 +854,20 @@ banded_forward_adaptive_kernel(const uint8_t* __restrict__ a, int La,
         op = Sn[s] == up ? OP_INS : op;
         op = Sn[s] == diag[s] ? OP_DIAG : op;
         out.w[s >> 2] |= op << (8 * (s & 3));
-      }
-      out.store(dp + (size_t)(j - 1) * W + t * V);
-      if constexpr (NW == 1) __syncwarp();            // every lane has read S
-#pragma unroll
-      for (int s = 0; s < V; ++s) {
         D[s] = Sn[s];
-        Sp[t * V + s] = Sn[s];
       }
-      m = argmin();
+      out.store(dp + (size_t)(j - 1) * W + l0);
+      if constexpr (NW > 1) move_window(c);          // here with a block: faster
     }
+    if (t < nc) offp[j0 + 1 + t] = off_kept;
   }
   for (int j = ncol + 1 + t; j <= MC; j += 32 * NW) offp[j] = off;
   fill_pad(dp, ncol, MC, W, t, 32 * NW);
   const int slot = clampi(la - off, 0, W - 1);
 #pragma unroll
   for (int s = 0; s < V; ++s) {
-    sfin[(size_t)p * W + t * V + s] = D[s];
-    if (t * V + s == slot) cost[p] = D[s];
+    sfin[(size_t)p * W + l0 + s] = D[s];
+    if (l0 + s == slot) cost[p] = D[s];
   }
 }
 
@@ -788,16 +883,27 @@ banded_forward_adaptive_kernel(const uint8_t* __restrict__ a, int La,
 // walks twice only when a walk stops on OP_PAD before (0, 0): the second
 // walk numbers columns and rows from that stop.
 //
-// One step per target column, as K3 (whose shared-memory ring of dirs rows,
-// filled with cp.async a half ahead, it reuses): the column's insertion run
-// under the entry row r ends at the highest "stop" lane <= clip(r - off, 0,
-// W-1), a lane whose op is not INS or that holds row 0; one
-// __reduce_max_sync of (lane + 1) << 8 | byte finds it (a second one across
-// warps with a block per pair). The clipped slot is read as the op walk
-// reads it: a stop at the clipped slot itself is the consumer at row r.
-// Match, the query base and the run's inserted bases come from a and b
-// (adaptive dirs carry the op alone); offs and b are loaded 32 columns at a
-// time, a lane each.
+// Bound: as K3's, latency: each step depends on the last step's row, at
+// about 8 warps per SM; the roofline (live dirs rows read once: bytes) is
+// about 10 times below it. A first version loaded the DIAG's query
+// base and two query bytes a lane for the insertion run on every step and
+// fed them to 1-3 __reduce_or_sync, so each step waited on a load. This
+// design runs K3's loop: one step per target column, the dirs rows streamed
+// into K3's shared-memory ring (cp.async, a half ahead), and a step does
+// only what decides the walk. The column's insertion run under the entry
+// row r ends at the highest "stop" lane <= clip(r - off, 0, W-1), a lane
+// whose op is not INS or that holds row 0; one __reduce_max_sync of (lane +
+// 1) << 8 | byte finds it (with a block per pair a second over the warps'
+// maxima, one __syncthreads a step). The clipped slot is read as the op walk
+// reads it: a stop at the clipped slot itself is the consumer at row r. The
+// step leaves its (op, consumer row, entry row) in the registers of lane
+// s % 32. The steps run in tiles of 32, as K1's columns do: offs come a tile
+// ahead, a lane each, and after a tile (or a stop) each lane builds its own
+// column's cols word and insb words from a and b (adaptive dirs carry the op
+// alone): match, the query base and up to 7 * words bases from each end of
+// its run, its loads in flight with those of the other 31 lanes and no warp
+// reduction, then stores them coalesced. (Built inside the step loop, the
+// stores' addresses were computed on every step.)
 template <int W>
 __global__ void __launch_bounds__(Tiling<W, K3_WIDE_MIN>::THREADS)
 adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restrict__ offs,
@@ -811,6 +917,7 @@ adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restric
   constexpr int H = 16384 / (W * T::PAIRS) < 16 ? 16384 / (W * T::PAIRS) : 16;
   constexpr int RING = 2 * H;
   constexpr int PIECES = H * W / 16;
+  constexpr int ROW_BITS = 28;                    // a kept step: row | op << ROW_BITS
   __shared__ __align__(16) uint8_t ring_all[T::PAIRS][RING][W];
   __shared__ int wkey[2][NW];
   int p, t;
@@ -824,6 +931,7 @@ adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restric
   const uint8_t* bp = b + (size_t)p * Lb;
   int* cp = cols + (size_t)p * MC;
   const int ncol = lb < MC ? (lb > 0 ? lb : 0) : MC;
+  const int l0 = t * V;
   auto sync = [&] {
     if constexpr (NW > 1) __syncthreads(); else __syncwarp();
   };
@@ -844,7 +952,10 @@ adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restric
   const bool emits = NW == 1 || wp == 0;   // the warp that writes cols and insb
   fill(ncol);
   int r0 = 0, j0 = 0;                      // where column and row numbering start
+  int r0_next = 0, j0_next = 0;            // ... from a stop on, in the second walk
   int lead_v = 0;
+  // the query base of walk row i + 1 (rows counted from r0), clipped
+  auto qa = [&](int i) -> uint32_t { return __ldg(ap + clampi(i - r0, 0, La - 1)); };
   for (int pass = 0; pass < 2; ++pass) {
     if (pass == 1) {                       // renumber from the stop: start afresh
       sync();
@@ -857,100 +968,91 @@ adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restric
       fetch(1);
       cp_async_wait_one_pending();
       sync();
-      vn.load(&ring[0][t * V]);
+      vn.load(&ring[0][l0]);
     }
     int r = la;
     bool stopped = false;
-    int colv = 0, insv0 = 0, insv1 = 0, insv2 = 0;   // lane s%32 keeps step s
-    int tile_off = 0, tile_b = 0;
-    // store the buffered steps s - c .. s - c + n - 1 (lane i holds step s - c + i)
-    auto flush = [&](int s, int c, int n) {
-      if (lt < n) {
-        const int jc = ncol - 1 - (s - c + lt) - j0;
-        cp[jc] = colv;
-        insb[(size_t)p * MC + jc] = insv0;
-        if (words > 1) insb[((size_t)PB + p) * MC + jc] = insv1;
-        if (words > 2) insb[((size_t)2 * PB + p) * MC + jc] = insv2;
-      }
-    };
-    for (int s = 0; s < ncol; ++s) {
-      const int j = ncol - s;                          // 1-based column
-      const int c = s & 31;
-      const Bytes<V> v = vn;
-      const bool boundary = s + 1 < ncol && (s + 1) % H == 0;
-      if (s + 1 < ncol && !boundary) vn.load(&ring[(s + 1) % RING][t * V]);
-      if (c == 0) {                                    // offs and b of 32 columns
-        const int jj = j - lt;
-        tile_off = offp[jj > 0 ? jj : 0];
-        tile_b = bp[clampi(jj - 1 - j0, 0, Lb - 1)];
-      }
-      const int off = __shfl_sync(FULL, tile_off, c);
-      const int tb = __shfl_sync(FULL, tile_b, c);
-      const int cur = clampi(r - off, 0, W - 1);
-      int key = 0;                                     // (lane + 1) << 8 | byte
+    int kept_row = 0, kept_r = 0;          // lane s%32: step s's row | op << 28, entry row
+    int tile_next = offp[ncol - lt > 0 ? ncol - lt : 0];   // offs of steps lt, lt + 32, ..
+    for (int s0 = 0; s0 < ncol && !stopped; s0 += 32) {     // a tile of 32 steps
+      const int tile_off = tile_next;
+      const int jn = ncol - s0 - 32 - lt;
+      tile_next = offp[jn > 0 ? jn : 0];
+      const int nc = ncol - s0 < 32 ? ncol - s0 : 32;
+      int kept = nc;                                   // steps of this tile to store
+      for (int c = 0; c < nc; ++c) {
+        const int s = s0 + c, j = ncol - s;            // j: the 1-based column
+        const Bytes<V> v = vn;
+        const bool boundary = s + 1 < ncol && (s + 1) % H == 0;
+        if (s + 1 < ncol && !boundary) vn.load(&ring[(s + 1) % RING][l0]);
+        const int off = __shfl_sync(FULL, tile_off, c);
+        const int cur = clampi(r - off, 0, W - 1);
+        int key = 0;                                   // (lane + 1) << 8 | byte
 #pragma unroll
-      for (int u = 0; u < V; ++u) {
-        const int lane = t * V + u, byte = v.get(u);
-        if (lane <= cur && ((byte & 3) != OP_INS || off + lane == 0))
-          key = ((lane + 1) << 8) | byte;
+        for (int u = 0; u < V; ++u) {
+          const int lane = l0 + u, byte = v.get(u);
+          bool stop = (byte & 3) != OP_INS;
+          if (u == 0) stop = stop || (l0 == 0 && off == 0);   // row 0
+          if (lane <= cur && stop) key = ((lane + 1) << 8) | byte;
+        }
+        key = __reduce_max_sync(FULL, key);
+        if constexpr (NW > 1) {
+          const int par = s & 1;
+          if (lt == 0) wkey[par][wp] = key;
+          __syncthreads();
+          key = __reduce_max_sync(FULL, lt < NW ? wkey[par][lt] : 0);
+        }
+        const int sel = (key >> 8) - 1;
+        // the consumer's row: the stop lane's, row r for a stop where the
+        // walk reads, row 0 past the run's bottom or at r = 0 (then DEL)
+        int row = sel >= 0 ? off + sel : 0;
+        if (sel == cur) row = r;
+        if (r == 0) row = 0;
+        const int o = row == 0 ? OP_DEL : (key & 3);
+        if (o == OP_PAD) {                             // the op walk stops here
+          kept = c;
+          lead_v = r - row;
+          r0_next = row;
+          j0_next = j;
+          stopped = true;
+          break;
+        }
+        if (lt == c) {
+          kept_row = row | (o << ROW_BITS);
+          kept_r = r;
+        }
+        r = o == OP_DIAG ? row - 1 : row;
+        if (boundary) {                                // next half landed; refill this one
+          cp_async_wait_all();
+          sync();
+          fetch((s + 1) / H + 1);
+          vn.load(&ring[(s + 1) % RING][l0]);
+        }
       }
-      key = __reduce_max_sync(FULL, key);
-      if constexpr (NW > 1) {
-        const int par = s & 1;
-        if (lt == 0) wkey[par][wp] = key;
-        __syncthreads();
-        key = __reduce_max_sync(FULL, lt < NW ? wkey[par][lt] : 0);
-      }
-      const int sel = (key >> 8) - 1;
-      int row, k;                                      // the consumer's row, the run
-      if (r == 0) { row = 0; k = 0; }                  // row 0: DEL
-      else if (sel == cur) { row = r; k = 0; }         // a stop where the walk reads
-      else if (sel >= 0) { row = off + sel; k = r - row; }
-      else { row = 0; k = r; }                         // INS down to row 0, then DEL
-      const int o = row == 0 ? OP_DEL : (key & 3);
-      if (o == OP_PAD) {                               // the op walk stops here
-        if (emits && c) flush(s, c, c);
-        lead_v = k;
-        r0 = row;
-        j0 = j;
-        stopped = true;
-        break;
-      }
-      if (emits) {
+      if (emits && lt < kept) {                        // this tile's columns, lane c step s0 + c
+        const int o = kept_row >> ROW_BITS, row = kept_row & ((1 << ROW_BITS) - 1);
+        const int k = kept_r - row;                    // the run: rows row+1 .. kept_r
+        const int jc = ncol - 1 - (s0 + lt) - j0;
         int match = 0, qbase = 0;
         if (o == OP_DIAG) {
-          qbase = __ldg(ap + clampi(row - 1 - r0, 0, La - 1));
-          match = qbase == tb;
+          qbase = (int)qa(row - 1);
+          match = qbase == (int)__ldg(bp + clampi(jc, 0, Lb - 1));
         }
-        if (lt == c) colv = (k << 5) | (qbase << 3) | (match << 2) | o;
-        // lane d: run rank d+1 from the start (row + d + 1) and rank d+1
-        // from the end (r - d), both into word d/7
-        const int kc = min(k, N_INSB * words);
-        unsigned bits = 0;
-        if (lt < kc) {
-          const int d = lt % N_INSB;
-          bits = (unsigned)__ldg(ap + clampi(row + lt - r0, 0, La - 1)) << (2 * d)
-               | (unsigned)__ldg(ap + clampi(r - lt - 1 - r0, 0, La - 1)) << (14 + 2 * d);
+        cp[jc] = (k << 5) | (qbase << 3) | (match << 2) | o;
+        // run rank i+1 from the start (row + i + 1) and from the end (kept_r - i)
+        unsigned ins[3] = {0u, 0u, 0u};
+#pragma unroll
+        for (int w = 0; w < 3; ++w) {
+#pragma unroll
+          for (int d = 0; d < N_INSB; ++d) {
+            const int i = N_INSB * w + d;
+            if (w < words && i < k)
+              ins[w] |= qa(row + i) << (2 * d) | qa(kept_r - i - 1) << (14 + 2 * d);
+          }
         }
-        const int wd = lt / N_INSB;
-        const unsigned b0 = __reduce_or_sync(FULL, wd == 0 ? bits : 0u);
-        if (lt == c) insv0 = (int)b0;
-        if (words > 1) {
-          const unsigned b1 = __reduce_or_sync(FULL, wd == 1 ? bits : 0u);
-          if (lt == c) insv1 = (int)b1;
-        }
-        if (words > 2) {
-          const unsigned b2 = __reduce_or_sync(FULL, wd == 2 ? bits : 0u);
-          if (lt == c) insv2 = (int)b2;
-        }
-        if (c == 31 || s == ncol - 1) flush(s, c, c + 1);
-      }
-      r = o == OP_DIAG ? row - 1 : row;
-      if (boundary) {                                  // next half landed; refill this one
-        cp_async_wait_all();
-        sync();
-        fetch((s + 1) / H + 1);
-        vn.load(&ring[(s + 1) % RING][t * V]);
+        insb[(size_t)p * MC + jc] = (int)ins[0];
+        if (words > 1) insb[((size_t)PB + p) * MC + jc] = (int)ins[1];
+        if (words > 2) insb[((size_t)2 * PB + p) * MC + jc] = (int)ins[2];
       }
     }
     cp_async_wait_all();
@@ -959,6 +1061,8 @@ adaptive_backtrack_kernel(const uint8_t* __restrict__ dirs, const int* __restric
       break;
     }
     if (pass == 1) break;
+    r0 = r0_next;
+    j0 = j0_next;
   }
   if (t == 0) lead[p] = lead_v;
 }

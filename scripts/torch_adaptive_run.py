@@ -7,8 +7,10 @@ the other phases.
     python scripts/torch_adaptive_run.py [--out adaptive.json]
         [--dump adaptive_records.npz]
 
-Prints chip_smoke's lines; the kernel rows go to --out as JSON, phase 20's
-records to --dump (chip_smoke.dump_records). Fails as the phase fails.
+Also K1, K2 and K3 at W=128 on the same chunk as K1a and K3a (phase 3's
+check), for chip_smoke's "adaptive/static" line. Prints chip_smoke's lines;
+the kernel rows and the ratios go to --out as JSON, phase 20's records to
+--dump (chip_smoke.dump_records). Fails as the phase fails.
 """
 
 from __future__ import annotations
@@ -38,15 +40,18 @@ def main() -> int:
     smi = cs.probe()
     cs.build()
     print(f"torch_adaptive_run: built at {time.perf_counter() - t0:.1f} s", flush=True)
+    static = cs.check_kernels(dev)                     # K1, K2, K3 at 128 (same chunk)
     launch_counts = {}
     _, main_inputs = cs.main_path(dev, launch_counts)
     print(f"torch_adaptive_run: main done at {time.perf_counter() - t0:.1f} s", flush=True)
     rows = cs.check_adaptive(dev, launch_counts, main_inputs, smi, dump=args.dump)
+    ratios = cs.adaptive_ratios({**static, **rows})
     print(f"torch_adaptive_run: {time.perf_counter() - t0:.1f} s")
     print(smi)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "kernels": list(rows.values()),
+            json.dump({"card": smi, "kernels": list(rows.values()) + list(static.values()),
+                       "ratios": ratios,
                        "launches": {p: cs._by_width(c) for p, c in launch_counts.items()}},
                       f, indent=1)
     return 0

@@ -15,12 +15,14 @@ library is compiled with nvcc into build/ab/, all at once.
 
 At each width: L = 8192, PB = pairs_per_chunk(8192, W), the pairs of
 chip_smoke.check_kernels (seed 2024). Every library's outputs (K2's ENC, K1's
-dirs and cost, K3's cols, insb and lead) must be identical to the first
-library's (--old, else the first --same); then each library's K2, K1 and K3
-are timed with CUDA events, `reps` launches each, in turns first, the others
-(this checkout last), the others again, first: for example parent, new, new,
-parent. Prints one JSON line per width and, with --out, writes them all to
-FILE.
+dirs and cost, K3's cols, insb and lead; K1a's dirs, offs, S_fin and cost,
+K3a's cols, insb and lead at 1 and 3 insb words) must be identical to the
+first library's (--old, else the first --same; an --old library is held to
+K2, K1 and K3 only); then each library's kernels are timed with CUDA events,
+`reps` launches each, in turns first, the others (this checkout last), the
+others again, first: for example parent, new, new, parent. Prints one JSON
+line per width (with each library's K1a/K1 and K3a/K3 time ratios) and, with
+--out, writes them all to FILE.
 """
 
 from __future__ import annotations
@@ -112,9 +114,38 @@ def kernels(name, lib, a, b, la, lb, W):
         k1()
 
     fns = {"K2": k2, "K1": k2k1 if name == "old" else k1, "K3": k3}
+    outs = dict(enc=enc, dirs=dirs, cost=cost, cols=cols, insb=insb, lead=lead)
     if name == "old":
         fns["K1_alone"] = k1
-    return fns, (enc, dirs, cost, cols, insb, lead)
+        return fns, outs
+    # the adaptive band: K1a, then K3a at 1 and 3 insb words on its dirs and offs
+    adirs = torch.empty((PB, L, W), dtype=torch.uint8, device=dev)
+    offs = torch.empty((PB, L + 1), dtype=torch.int32, device=dev)
+    sfin = torch.empty((PB, W), dtype=torch.int32, device=dev)
+    acost = torch.empty(PB, dtype=torch.int32, device=dev)
+    outs.update(k1a_dirs=adirs, k1a_offs=offs, k1a_sfin=sfin, k1a_cost=acost)
+
+    def k1a():
+        check(lib.necat_banded_forward_adaptive(
+            a.data_ptr(), L, b.data_ptr(), L, la.data_ptr(), lb.data_ptr(), adirs.data_ptr(),
+            offs.data_ptr(), sfin.data_ptr(), acost.data_ptr(), PB, L, W, st()), "K1a")
+
+    def k3a(words):
+        acols = torch.empty((PB, L), dtype=torch.int32, device=dev)
+        ainsb = torch.empty((words, PB, L), dtype=torch.int32, device=dev)
+        alead = torch.empty(PB, dtype=torch.int32, device=dev)
+        outs.update({f"k3a{words}_cols": acols, f"k3a{words}_insb": ainsb,
+                     f"k3a{words}_lead": alead})
+
+        def run():
+            check(lib.necat_adaptive_backtrack(
+                adirs.data_ptr(), offs.data_ptr(), a.data_ptr(), L, b.data_ptr(), L,
+                la.data_ptr(), lb.data_ptr(), acols.data_ptr(), ainsb.data_ptr(),
+                alead.data_ptr(), PB, L, W, words, st()), "K3a")
+        return run
+
+    fns.update(K1a=k1a, K3a_1=k3a(1), K3a_3=k3a(3))
+    return fns, outs
 
 
 def time_ms(fn, reps):
@@ -156,14 +187,15 @@ def main(argv=None) -> int:
     for W in args.widths:
         a, b, la, lb = kernel_pairs(dev, W)
         sets = {name: kernels(name, lib, a, b, la, lb, W) for name, lib in libs.items()}
-        for fns, _ in sets.values():              # one run each, then compare
-            fns["K2"]()
-            fns["K1"]()
-            fns["K3"]()
+        for fns, _ in sets.values():              # one run each (K1a before K3a), then compare
+            for k in ("K2", "K1", "K3", "K1a", "K3a_1", "K3a_3"):
+                if k in fns:
+                    fns[k]()
         torch.cuda.synchronize()
         ref = sets[first][1]
         for name, (_, outs) in sets.items():
-            for what, x, y in zip(("enc", "dirs", "cost", "cols", "insb", "lead"), outs, ref):
+            for what, x in outs.items():
+                y = ref.get(what, x) if first == "old" else ref[what]
                 if not torch.equal(x, y):
                     raise AssertionError(f"W={W}: {name}'s {what} differs from {first}'s")
         order = [first] + [n for n in sets if n != first] * 2 + [first]
@@ -171,8 +203,12 @@ def main(argv=None) -> int:
         for name in order:
             for k, fn in sets[name][0].items():
                 ms.setdefault(f"{name}:{k}", []).append(time_ms(fn, args.reps))
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        ratios = {f"{name}:{x}/{y}": mean[f"{name}:{x}"] / mean[f"{name}:{y}"]
+                  for name in sets for x, y in (("K1a", "K1"), ("K3a_1", "K3"))
+                  if f"{name}:{x}" in mean}
         row = {"W": W, "PB": int(a.shape[0]), "L": 8192, "card": smi, "identical": True,
-               "ms": {k: v for k, v in ms.items()}}
+               "ms": {k: v for k, v in ms.items()}, "ratios": ratios}
         rows.append(row)
         print(json.dumps(row), flush=True)
         del sets

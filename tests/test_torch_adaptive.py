@@ -12,7 +12,7 @@ import torch
 from necat_tpu.align import banded as jbanded
 from necat_tpu_torch.align import banded, banded_kernels as bk
 from necat_tpu_torch.io import simulate
-from test_torch_package import random_walk_inputs
+from test_torch_package import band_edge_pairs, long_run_walk_inputs, random_walk_inputs
 from torch_port_helpers import band_pairs, extension_batch
 
 T = torch.from_numpy
@@ -133,6 +133,64 @@ def test_backtrack_cols_random_walks_match_jax():
         np.testing.assert_array_equal(lead.numpy(), np.asarray(lead_j))
     # some walks stopped short of the origin: fewer ops than la + lb
     ops = np.asarray(ops_j)
+    moved = ((ops == 0) * 2 + (ops == 1) + (ops == 2)).sum(axis=1)
+    assert (moved < la + lb).any()
+
+
+def _cols_both(dirs, offs, a, b, la, lb, W, words):
+    """K3a's plain version and the JAX traceback + ops_to_cols on the same
+    dirs and offs; asserts equality, returns the cols and the JAX ops."""
+    MC = dirs.shape[1]
+    ops_j, n_j = jbanded.banded_traceback(J(dirs), J(offs), J(la), J(lb),
+                                          max_ops=a.shape[1] + MC)
+    cols_j, insb_j, lead_j = jbanded.ops_to_cols(ops_j, n_j, J(a), J(b), MC=MC, words=words)
+    cols, insb, lead = bk.adaptive_backtrack_cols(*[T(x) for x in (dirs, offs, a, b, la, lb)],
+                                                  W, words)
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(cols_j))
+    assert len(insb) == len(insb_j) == words
+    for x, y in zip(insb, insb_j):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    np.testing.assert_array_equal(lead.numpy(), np.asarray(lead_j))
+    return cols.numpy(), np.asarray(ops_j)
+
+
+@pytest.mark.parametrize("W", [64, 128, 512, 1024])
+def test_band_decision_edges_match_jax(W):
+    """band_edge_pairs: first-minimum ties at lanes W//3, W//3 + 1 and 2W//3,
+    2W//3 + 1 (the first lane of a tie decides the shift), runs of shifts by
+    2 (from 512 the band's rows move past a warp boundary every column) and
+    an insertion run of g > 21 bases (at 1024 one across K3a's warp
+    boundary): the plain versions equal the JAX scan, traceback and
+    ops_to_cols at 1 and 3 insb words. The clip of off at max(la, 0) never
+    binds: a shift needs the first minimum past lane W//3, in a row <= la."""
+    a, b, la, lb, ties = band_edge_pairs(W)
+    for p, (j, lane) in ties.items():
+        S = bk.banded_forward_adaptive_ref(T(a[p:p + 1]), T(b[p:p + 1]), T(la[p:p + 1]),
+                                           T(lb[p:p + 1]), W, max_cols=j)[2][0]
+        assert int(S.argmin()) == lane and S[lane] == S[lane + 1] < bk.INF
+    (dj, oj, sj, cj), (d, o, s, c) = _forward_both(a, b, la, lb, W)
+    for p in range(len(la)):
+        np.testing.assert_array_equal(d[p, :lb[p]], dj[p, :lb[p]], err_msg=f"dirs {p}")
+        np.testing.assert_array_equal(o[p, :lb[p] + 1], oj[p, :lb[p] + 1],
+                                      err_msg=f"offs {p}")
+    np.testing.assert_array_equal(s, sj)
+    np.testing.assert_array_equal(c, cj)
+    if W < 1024:
+        assert (np.diff(o, axis=1) == 2).sum() > 10
+    for words in (1, 3):
+        cols, _ = _cols_both(d, o, a, b, la, lb, W, words)
+        assert (cols >> 5).max() > 3 * bk.N_INSB
+
+
+@pytest.mark.parametrize("W", [64, 1024])
+def test_backtrack_long_runs_and_pad_stops_match_jax(W):
+    """K3a's plain version on long_run_walk_inputs (insertion runs past 3
+    insb words; walks stopped on OP_PAD, which K3a walks twice) against the
+    JAX traceback + ops_to_cols, 1 and 3 insb words."""
+    dirs, offs, a, b, la, lb = long_run_walk_inputs(W, W)
+    for words in (1, 3):
+        cols, ops = _cols_both(dirs, offs, a, b, la, lb, W, words)
+    assert ((cols >> 5) > 3 * bk.N_INSB).any()
     moved = ((ops == 0) * 2 + (ops == 1) + (ops == 2)).sum(axis=1)
     assert (moved < la + lb).any()
 

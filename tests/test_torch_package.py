@@ -294,6 +294,70 @@ def random_walk_inputs(seed, PB=16, MC=96, L=128, W=64):
     return dirs, offs, a, b, la, lb
 
 
+# band_edge_pairs: per width, the G insertion (start p, length g) that moves
+# the band's minimum into its last third, the row r of the extra G that puts
+# a first-minimum tie at lanes 2W//3 and 2W//3 + 1, and the column of that
+# tie (found with the plain version; the tests assert that the ties occur)
+EDGE_INSERTIONS = {64: (20, 27, 125, 133), 128: (30, 50, 444, 446),
+                   512: (40, 160, 388, 230), 1024: (40, 250, None, None)}
+
+
+def band_edge_pairs(W, L=512):
+    """K1a/K3a inputs for the cases the band decision treats apart (numpy,
+    PB 3, 2 at W=1024; query and target bases 0..3, L=512):
+    0: target A^n, query A^k C A^(n-k) with k = W//3: at column W//3 + 1 the
+       first minimum of S is at lane W//3 and ties with lane W//3 + 1;
+    1: target random over {A, C, T}; query = target with G^g inserted at p:
+       once the insertion path is the cheaper one the band's minimum jumps g
+       lanes into the last third, so the band shifts by 2 for a run of
+       columns (and past a warp boundary with a block per pair), and the path
+       holds an insertion run of g > 21 bases;
+    2: pair 1 with one more G at row r (where the band's minimum sits at lane
+       2W//3): a first-minimum tie at lanes 2W//3 and 2W//3 + 1 (not at 1024,
+       whose band never moves that far in 512 rows).
+    Returns a, b, la, lb and {pair: (column, lane)} of the ties."""
+    A, C, G = 0, 1, 2
+    p, g, r, j_tie = EDGE_INSERTIONS[W]
+    PB = 2 if r is None else 3
+    a = np.zeros((PB, L), np.uint8)
+    b = np.zeros((PB, L), np.uint8)
+    k = W // 3
+    n0 = min(L - 1, k + 160)
+    a[0, k] = C
+    la, lb = [n0 + 1], [n0]
+    rng = np.random.default_rng(W)
+    n = L - g - 1
+    t = rng.choice(np.array([A, C, 3], np.uint8), n)
+    q = np.concatenate([t[:p], np.full(g, G, np.uint8), t[p:]])
+    a[1, :len(q)], b[1, :n] = q, t
+    la.append(len(q))
+    lb.append(n)
+    ties = {0: (k + 1, k)}
+    if r is not None:
+        q2 = np.insert(q, r, G)
+        a[2, :len(q2)], b[2, :n] = q2, t
+        la.append(len(q2))
+        lb.append(n)
+        ties[2] = (j_tie, (2 * W) // 3)
+    return a, b, np.array(la, np.int32), np.array(lb, np.int32), ties
+
+
+def long_run_walk_inputs(seed, W, PB=8, MC=128, L=256):
+    """random_walk_inputs with insertion runs of 15-40 lanes in every column,
+    so that runs longer than 3 insb words (21 bases) reach cols, and OP_PAD
+    bytes that stop some walks short of the origin. numpy arrays."""
+    dirs, offs, a, b, la, lb = random_walk_inputs(seed, PB, MC, L, W)
+    rng = np.random.default_rng(seed + 1)
+    dirs[(dirs & 3) == 2] &= 0xFC                      # no INS but in the runs
+    start = rng.integers(0, min(W, L), (PB, MC, 1))          # where the walk reads
+    lanes = np.arange(W)[None, None, :]
+    run = (lanes >= start) & (lanes < start + rng.integers(15, 41, (PB, MC, 1)))
+    dirs[run & ((dirs & 3) != 3)] = 2 | (dirs[run & ((dirs & 3) != 3)] & 0xFC)
+    la = np.maximum(la, L // 2).astype(np.int32)
+    lb = np.maximum(lb, MC // 2).astype(np.int32)
+    return dirs, offs, a, b, la, lb
+
+
 def _check_adaptive(cpu, dev, W, words):
     """K1a and K3a on the card equal their plain versions on the CPU, every
     output byte for byte, one launch each; returns the plain cols."""
@@ -358,3 +422,34 @@ def test_cuda_adaptive_backtrack_random_walks(cuda_device, W, words):
     assert torch.equal(out_d[0].cpu(), out_c[0])
     assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1], strict=True))
     assert torch.equal(out_d[2].cpu(), out_c[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 128, 512, 1024])
+def test_cuda_adaptive_band_edges(cuda_device, W):
+    """K1a and K3a (1 and 3 insb words) on band_edge_pairs: first-minimum
+    ties at the thirds' boundaries, runs of shifts by 2 (across a warp
+    boundary with a block per pair: K1a from 512, K3a from 1024) and
+    insertion runs longer than 21 bases; equal to their plain versions."""
+    a, b, la, lb, _ = band_edge_pairs(W)
+    cpu = [torch.from_numpy(x) for x in (a, b, la, lb)]
+    for words in (1, 3):
+        cols = _check_adaptive(cpu, [x.to(cuda_device) for x in cpu], W, words)
+        assert (cols >> 5).max() > 3 * 7                 # a run past 3 insb words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 1024])
+def test_cuda_adaptive_backtrack_long_runs(cuda_device, W):
+    """K3a on long_run_walk_inputs (runs past 7 * words bases, walks stopped
+    on OP_PAD, so the second walk) equals its plain version at 1 and 3 insb
+    words."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    arrs = [torch.from_numpy(x) for x in long_run_walk_inputs(W, W)]
+    for words in (1, 3):
+        out_c = bk.adaptive_backtrack_cols(*arrs, W, words)
+        out_d = bk.adaptive_backtrack_cols(*[x.to(cuda_device) for x in arrs], W, words)
+        torch.cuda.synchronize()
+        assert torch.equal(out_d[0].cpu(), out_c[0])
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(out_d[1], out_c[1], strict=True))
+        assert torch.equal(out_d[2].cpu(), out_c[2])
