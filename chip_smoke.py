@@ -130,17 +130,40 @@ Phases, each failing the run on error:
              equal main's, K1a and K3a must launch at 128 and no other
              kernel may, and the records are held to the JAX package's own
              default run of this set on the CPU (JAX_CPU_MAIN_REFERENCE,
-             scripts/jax_main_reference.py). K1a and K3a may launch in no
-             other phase. The "adaptive/static" line gives K1a/K1 and K3a/K3
-             (1 insb word) at W=128 on the same kernel_pairs chunk, from the
-             rows of this phase and of phase 3.
-Phases 17, 18, 19 and 20 run before 16, which empties this process's
+             scripts/jax_main_reference.py). The "adaptive/static" line
+             gives K1a/K1 and K3a/K3 (1 insb word) at W=128 on the same
+             kernel_pairs chunk, from the rows of this phase and of phase 3.
+ 21. adaptive-pipeline with NECAT_TPU_NO_PALLAS set: (a) `cli assemble`
+             and then `cli bridge` --device cuda in a fresh project from
+             phase 8's config; (b) phase 11b's bridge_contigs on the card;
+             (c) phase 7's planted insertions through extend_candidates and
+             correct_reads(rescue_long_indels=True) on the card. Each stage
+             file (cns_final, trimReads, contigs, polished_contigs after
+             assemble, bridged_contigs, polished_contigs after bridge), (b)'s
+             contigs and (c)'s M4 and records must equal the JAX package's
+             own CPU run by sha256 (JAX_CPU_PIPELINE_REFERENCE,
+             JAX_CPU_BRIDGE_DIGEST, JAX_CPU_LADDER_REFERENCE;
+             scripts/jax_pipeline_reference.py,
+             scripts/jax_bridge_reference.py), but for PIPELINE_TIES
+             (template 199's name in cns_final and trimReads, a float32 tie
+             of the reference: the rest of each file must equal the
+             reference's and the record the documented one), and the contigs' count, N50
+             and identity JAX_CPU_ASSEMBLY_REFERENCE's to its printed
+             precision; K1a and K3a must launch at 128 and 256 (K3a also
+             with 3 insb words) in (a) and (b) and at every rung 512-4096 in
+             (c), and K1, K2 and K3 never. K1a and K3a may launch in phases
+             20 and 21 only. The shape (PB, L, Lb) of every K1a and K3a call
+             is recorded by path, and at each (W, insb words) the phase
+             launched, K1a and K3a are held to their plain versions (exact
+             equality, times, bounds) on the inputs of its longest call.
+Phases 17-21 run before 16, which empties this process's
 allocator for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and W=64 (so that K2 is held at every width
 of KERNEL_WIDTHS), and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
-small-memory, volumes, index, devices, timing, adaptive) and read after it; phase 16's launches run in other
+small-memory, volumes, index, devices, timing, adaptive, adaptive-pipeline,
+adaptive-bridge, adaptive-ladder) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
@@ -187,7 +210,7 @@ JAX_CPU_MAIN_REFERENCE = {
     "tie_flips": {"199": [15, 16329, 16276]}}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
 # necat_tpu's `cli assemble` of the bench read set on the CPU with the config
-# of phase 8 (the adaptive band; scripts/jax_assemble_reference.py):
+# of phase 8 (the adaptive band; scripts/jax_pipeline_reference.py):
 # identities as contig_identity measures them. Its polish LOWERS identity on
 # this set (the hotspot repair; without it the port's polish keeps the
 # draft's identity, scripts/torch_polish_diag.py), so phase 10 holds the
@@ -200,6 +223,60 @@ JAX_CPU_ASSEMBLY_REFERENCE = {"contigs": 1, "contig_n50": 199982,
 # 11b must give as many contigs, a total within 0.5 % of this one, and an
 # identity (contig_identity) no more than 0.5 points lower.
 JAX_CPU_BRIDGE_REFERENCE = {"contigs": 1, "total": 198778, "identity": 99.758}
+# necat_tpu's `cli assemble` and then `cli bridge` of the bench read set on
+# the CPU with phase 8's config (its adaptive band; scripts/
+# jax_pipeline_reference.py): fasta_digest of each stage file
+# (pipeline_paths). Phase 21 runs the port's adaptive band on the card and
+# must write these files (or differ only by PIPELINE_TIES, where the digest
+# of the rest is given).
+JAX_CPU_PIPELINE_REFERENCE = {"files": {
+    "cns_final": {
+        "sha256": "f58498f651db9d8a2059b1cb0e8702c2849815dbd3b6e7a6041d9d3d0a118c40",
+        "records": 339,
+        "sha256_without_ties":
+            "fd0524befdce9207b208043f915afb4f6a77c5f122d448d1970c5618838376dc"},
+    "trimReads": {
+        "sha256": "dcd813816e08bbe23b9bf13e0c2d9ff44379687aa2dfb2398a30a4a2638a6b55",
+        "records": 339,
+        "sha256_without_ties":
+            "2265dd84dc8d517a6a4541fb98d77f68db21d43a815c98605fdaadb314ca714f"},
+    "contigs": {
+        "sha256": "ef9694a1cbf026f8d0672a641f25e5584b2146137421b5b3e7acdd2937a3a166",
+        "records": 1},
+    "polished_assemble": {
+        "sha256": "58e00d1d6363143f5245b2db88ac71560bc857988b483c22670c558349f9f625",
+        "records": 1},
+    "bridged_contigs": {
+        "sha256": "ef9694a1cbf026f8d0672a641f25e5584b2146137421b5b3e7acdd2937a3a166",
+        "records": 1},
+    "polished_bridge": {
+        "sha256": "58e00d1d6363143f5245b2db88ac71560bc857988b483c22670c558349f9f625",
+        "records": 1}}}
+# Phase 21's records that differ from the JAX package's CPU run by a float32
+# tie of the reference (ROADMAP queue 3), by file: the port's record
+# (fasta_record_digests: name, length, sha256[:16] of the sequence) and the
+# reference's. cns_final: template 199's first iteration calls the gap at
+# column 5240 on an exact sum that the reference's float32 sums tie with A
+# (MAIN_TIE_FLIPS' tie, scripts/adaptive_tie_probe.py), so its second
+# iteration's template is 16 334 bases, not 16 335, and its record's right
+# end and original size in the name are one less; the sequence is the same.
+# trim keeps the names (and the JAX package's trim of the port's cns_final
+# writes the port's trimReads).
+TIE_199 = {"199_15_16305_16334 16376 2f26377ff4d51343":
+           "199_15_16306_16335 16376 2f26377ff4d51343"}
+PIPELINE_TIES = {"cns_final": TIE_199, "trimReads": TIE_199}
+# fasta_digest of necat_tpu's bridge_contigs of phase 11b's contigs and reads
+# on the CPU (scripts/jax_bridge_reference.py): phase 21's bridged bench
+# contigs must equal it.
+JAX_CPU_BRIDGE_DIGEST = {
+    "sha256": "ae7568a534fdcf056c892d4e385e6dd6fc6584d711a9c45d4081bf3464e97ab1",
+    "records": 1}
+# m4_digest of necat_tpu's extend_candidates and records_digest of its
+# correct_reads(rescue_long_indels=True) of planted_pairs on the CPU
+# (scripts/jax_pipeline_reference.py --ladder-only): phase 21's ladder.
+JAX_CPU_LADDER_REFERENCE = {
+    "m4": "7accc69555a75b55018709fee25efeab758dce9d0a7c872ac41ee621646a1e2c",
+    "records": "74a99a13f3ecb670ce3564bdac0a004ec5dc3604f0e39cf81aa5abb20e436ae8"}
 RUNGS = (512, 1024, 2048, 4096)      # the rescue ladder's widths from W0=128
 POLISH_W = 256                       # PolishOptions.band_width
 POLISH_WORDS = 3                     # K3's insb words at max_delta 22
@@ -229,8 +306,10 @@ REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward_adaptive": "necat_tpu/align/banded.py:48",
             "adaptive_backtrack_cols": "necat_tpu/align/banded.py:112+:181"}
 ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
-# the adaptive band's kernels (NECAT_TPU_NO_PALLAS): phase 20 only
+# the adaptive band's kernels (NECAT_TPU_NO_PALLAS), and the paths (phases
+# 20 and 21) where they may launch
 ADAPTIVE = ("banded_forward_adaptive", "adaptive_backtrack_cols")
+ADAPTIVE_PATHS = ("adaptive", "adaptive-pipeline", "adaptive-bridge", "adaptive-ladder")
 # Phase 20 holds K1a and K3a against their plain versions at L=8192 at
 # main's width (128) and at ADAPTIVE_L at the other widths: the plain
 # versions launch a few torch ops per column or op (4-8 s a call at 8192).
@@ -331,7 +410,12 @@ def _max_abs_err(x, y) -> float:
     for u, v in zip(xs, ys):
         if u.shape != v.shape or u.dtype != v.dtype:
             raise AssertionError(f"{u.shape} {u.dtype} against {v.shape} {v.dtype}")
-        err = max(err, float((u.long() - v.long()).abs().max()) if u.numel() else 0.0)
+        # in slices of 2^26 elements: a path's dirs reach 4 GiB (PB 256 x
+        # 65536 columns x W 256), eight times that as int64
+        u, v = u.reshape(-1), v.reshape(-1)
+        for i in range(0, u.numel(), 1 << 26):
+            d = u[i:i + (1 << 26)].long() - v[i:i + (1 << 26)].long()
+            err = max(err, float(d.abs().max()))
     return err
 
 
@@ -428,20 +512,22 @@ def check_kernels(dev, W: int = 128, L: int = 8192, k3_words=(1,)) -> dict:
     return results
 
 
-def _kernel_row(name, W, words, PB, L, err, ms, plain_ms, bound_ms_by) -> dict:
+def _kernel_row(name, W, words, PB, L, err, ms, plain_ms, bound_ms_by,
+                inputs: str = "kernel_pairs") -> dict:
     """A kernel's row of the "kernels" line, printed; raises if the kernel and
-    its plain version disagree."""
+    its plain version disagree. `inputs` names where the pairs came from:
+    kernel_pairs, or the path whose launch they were."""
     bound_ms, bound_by = bound_ms_by
     print(f"kernel {name}: PB={PB} L={L} W={W}"
-          + (f" words={words}" if words else "") + f" max_abs_err={err} "
+          + (f" words={words}" if words else "") + f" inputs={inputs} max_abs_err={err} "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}, {100 * bound_ms / ms:.1f} % of it)", flush=True)
     if err != 0.0:
         raise AssertionError(f"{name}: kernel and plain version disagree ({err})")
     return dict(name=name, W=W, **({"words": words} if words else {}), L=L, PB=PB,
-                cuda_kernel=_cuda_kernel(name, W), route="cuda", source=KERNEL_SOURCE,
-                replaces=REPLACES[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                inputs=inputs, cuda_kernel=_cuda_kernel(name, W), route="cuda",
+                source=KERNEL_SOURCE, replaces=REPLACES[name], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _launches(bk) -> dict:
@@ -507,6 +593,17 @@ def records_digest(recs, skip=()) -> str:
         h.update(np.array([r.tid, r.left, r.right, int(r.corrected), len(seq)],
                           np.int64).tobytes())
         h.update(seq.tobytes())
+    return h.hexdigest()
+
+
+def m4_digest(m4) -> str:
+    """sha256 over every field of an M4 set (as int64, in field order): one
+    digest of an extension's whole output."""
+    import hashlib
+    h = hashlib.sha256()
+    for f in dataclasses.fields(m4):
+        h.update(f.name.encode())
+        h.update(np.ascontiguousarray(getattr(m4, f.name), np.int64).tobytes())
     return h.hexdigest()
 
 
@@ -670,6 +767,31 @@ def check_rescue(dev, launch_counts: dict) -> None:
         raise AssertionError(f"rescue: kernels never launched at {missing}")
 
 
+def bench_project(work: str = WORK, template: str | None = None, fresh: bool = True):
+    """A directory `work` (emptied first if `fresh`) holding the bench read
+    set (reads.fasta, read_list.txt) and phase 8's config (from `template`,
+    by default the port's config template) for the project work/project.
+    Returns the config's path, the genome and the reads' truth (starts,
+    strands, lengths)."""
+    from necat_tpu_torch.pipeline import config as config_mod
+    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
+    genome, store, truth = gen_benchmark_reads(genome_size=200_000, coverage=20, seed=7)
+    if fresh:
+        shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work, exist_ok=True)
+    reads = os.path.join(work, "reads.fasta")
+    if not os.path.exists(reads):
+        store.to_fasta(reads)
+    with open(os.path.join(work, "read_list.txt"), "w") as f:
+        f.write(reads + "\n")
+    cfg_path = os.path.join(work, "run.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(pipeline_config(template or config_mod.CONFIG_TEMPLATE,
+                                os.path.join(work, "project"),
+                                os.path.join(work, "read_list.txt")))
+    return cfg_path, genome, truth
+
+
 def check_correct(launch_counts: dict, main_res: dict):
     """The CLI's correct command (Project.run_correct) on the bench read set
     with the config template's options and NUM_ITER=2 (iteration 2 runs the
@@ -678,26 +800,7 @@ def check_correct(launch_counts: dict, main_res: dict):
     from necat_tpu_torch.consensus.correct import CnsRecord
     from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.pipeline import cli
-    from necat_tpu_torch.pipeline import config as config_mod
-    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
-    genome, store, (st, sd, ln) = gen_benchmark_reads(genome_size=200_000,
-                                                      coverage=20, seed=7)
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
-    reads = os.path.join(WORK, "reads.fasta")
-    store.to_fasta(reads)
-    with open(os.path.join(WORK, "read_list.txt"), "w") as f:
-        f.write(reads + "\n")
-    cfg_text = config_mod.CONFIG_TEMPLATE.replace(
-        "PROJECT=", f"PROJECT={os.path.join(WORK, 'project')}").replace(
-        "ONT_READ_LIST=", f"ONT_READ_LIST={os.path.join(WORK, 'read_list.txt')}").replace(
-        "GENOME_SIZE=", "GENOME_SIZE=200000").replace(
-        # keep every read (a few simulated from 3 kb intervals come out
-        # shorter), so that read ids stay the bench set's
-        "MIN_READ_LENGTH=3000", "MIN_READ_LENGTH=1000")
-    cfg_path = os.path.join(WORK, "run.cfg")
-    with open(cfg_path, "w") as f:
-        f.write(cfg_text)
+    cfg_path, genome, (st, sd, ln) = bench_project()
     bk.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -862,6 +965,72 @@ def bridge_bench_contigs(genome):
 
 STAGE_DIRS = {"correct": "1-consensus", "trim": "2-trim_bases", "assemble": "4-fsa",
               "bridge": "6-bridge_contigs", "polish": "final-polish"}
+
+
+def pipeline_config(template: str, prj: str, read_list: str) -> str:
+    """Phase 8's config (the config template with the bench genome's size and
+    MIN_READ_LENGTH=1000) for project `prj`: both packages' templates take
+    the same replacements."""
+    return template.replace("PROJECT=", f"PROJECT={prj}").replace(
+        "ONT_READ_LIST=", f"ONT_READ_LIST={read_list}").replace(
+        "GENOME_SIZE=", "GENOME_SIZE=200000").replace(
+        # keep every read (a few simulated from 3 kb intervals come out
+        # shorter), so that read ids stay the bench set's
+        "MIN_READ_LENGTH=3000", "MIN_READ_LENGTH=1000")
+
+
+def pipeline_paths(prj: str, polished_after_assemble: str) -> dict:
+    """The stage files of `cli assemble` then `cli bridge` that phase 21
+    holds to JAX_CPU_PIPELINE_REFERENCE, by key."""
+    return {"cns_final": os.path.join(prj, "1-consensus", "cns_final.fasta.gz"),
+            "trimReads": os.path.join(prj, "trimReads.fasta.gz"),
+            "contigs": os.path.join(prj, "4-fsa", "contigs.fasta"),
+            "polished_assemble": polished_after_assemble,
+            "bridged_contigs": os.path.join(prj, "6-bridge_contigs", "bridged_contigs.fasta"),
+            "polished_bridge": os.path.join(prj, "polished_contigs.fasta")}
+
+
+def stage_seconds(prj: str) -> dict:
+    """Each stage's wall_s from its manifest (polish: the last run's)."""
+    out = {}
+    for name, sub in STAGE_DIRS.items():
+        path = os.path.join(prj, sub, f"{name}.done.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out[name] = json.load(f)["wall_s"]
+    return out
+
+
+def run_pipeline(cli, cfg_path: str, prj: str, after_assemble: str,
+                 device: str | None = None, cns_final: str | None = None) -> tuple:
+    """`cli assemble` and then `cli bridge` of cfg_path's project prj, with
+    either package's cli module (`device` adds --device). The bridge
+    command's polish overwrites polished_contigs.fasta, so the assemble
+    command's is copied to after_assemble first. cns_final, another run's
+    file, stands in for the correct stage's output (correct does not run).
+    A project whose bridge manifest and after_assemble exist is only read.
+    Returns (pipeline_paths, each command's wall seconds, the stages'
+    seconds from the manifests after each command)."""
+    paths = pipeline_paths(prj, after_assemble)
+    if cns_final:
+        os.makedirs(os.path.dirname(paths["cns_final"]), exist_ok=True)
+        if not os.path.exists(paths["cns_final"]):
+            shutil.copy(cns_final, paths["cns_final"])
+        cli.Project.run_correct = lambda self, *a, **k: paths["cns_final"]
+    walls, stages = {}, {}
+    if os.path.exists(after_assemble) and os.path.exists(
+            os.path.join(prj, STAGE_DIRS["bridge"], "bridge.done.json")):
+        return paths, walls, stages
+    for cmd in ("assemble", "bridge"):
+        t0 = time.perf_counter()
+        rc = cli.main([cmd, cfg_path] + (["--device", device] if device else []))
+        if rc != 0:
+            raise AssertionError(f"cli {cmd} exited {rc}")
+        walls[cmd] = time.perf_counter() - t0
+        stages[cmd] = stage_seconds(prj)
+        if cmd == "assemble":
+            shutil.copy(os.path.join(prj, "polished_contigs.fasta"), after_assemble)
+    return paths, walls, stages
 
 
 def _stage_reports(prj: str, names=("correct", "trim", "assemble", "polish")) -> dict:
@@ -1113,6 +1282,31 @@ def _content(path: str) -> bytes:
     import gzip
     with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
         return f.read()
+
+
+def fasta_digest(path: str, skip=()) -> dict:
+    """sha256 over a FASTA file's decompressed content, less the records
+    whose name is in `skip`, and the file's record count."""
+    import hashlib
+    data = _content(path)
+    n = data.count(b">")
+    if skip:
+        data = b"".join(b">" + rec for rec in data.split(b">")[1:]
+                        if rec.partition(b"\n")[0].decode() not in skip)
+    return {"sha256": hashlib.sha256(data).hexdigest(), "records": n}
+
+
+def fasta_record_digests(path: str) -> list:
+    """One "name length sha256[:16]" string per record of a FASTA file, in file
+    order (the sequence's lines joined): places a difference between two runs'
+    files."""
+    import hashlib
+    out = []
+    for rec in _content(path).split(b">")[1:]:
+        head, _, body = rec.partition(b"\n")
+        seq = body.replace(b"\n", b"")
+        out.append(f"{head.decode()} {len(seq)} {hashlib.sha256(seq).hexdigest()[:16]}")
+    return out
 
 
 def _same_as_phase10(prj: str, files, what: str) -> None:
@@ -1550,14 +1744,14 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def check_adaptive_kernels(dev, W: int, L: int = 8192, k3_words=(1,)) -> dict:
+def compare_adaptive(a, b, la, lb, W: int, k3_words=(1,), inputs: str = "kernel_pairs"
+                     ) -> dict:
     """K1a and K3a (at each insb word count in k3_words) against their plain
-    versions at one production chunk of width W (kernel_pairs): exact
-    equality. The plain versions, one launch per torch op and column, run
-    once each, timed."""
+    versions on these pairs: exact equality. The plain versions, one launch
+    per torch op and column, run once each, timed. Rows keyed (kernel, W,
+    words) for kernel_pairs, (kernel, W, words, inputs) for a path's launch."""
     from necat_tpu_torch.align import banded_kernels as bk
-    a, b, la, lb = kernel_pairs(dev, W, L)
-    PB = a.shape[0]
+    PB, L = a.shape
     fwd = (lambda: bk.banded_forward_adaptive(a, b, la, lb, W),
            lambda: bk.banded_forward_adaptive_ref(a, b, la, lb, W))
     dirs, offs, _, _ = fwd[0]()
@@ -1572,10 +1766,56 @@ def check_adaptive_kernels(dev, W: int, L: int = 8192, k3_words=(1,)) -> dict:
         want, plain_ms = _timed_once(plain)
         err = _max_abs_err(got, want)
         ms = _time_ms(kernel, 5)
-        results[(name, W, words)] = _kernel_row(
+        key = (name, W, words) if inputs == "kernel_pairs" else (name, W, words, inputs)
+        results[key] = {**_kernel_row(
             name, W, words, PB, L, err, ms, plain_ms,
-            bound(name, a, b, lb, W, got[0] if words else None, words or 1, la))
+            bound(name, a, b, lb, W, got[0] if words else None, words or 1, la), inputs),
+            "Lb": b.shape[1]}
     return results
+
+
+class AdaptiveShapes:
+    """While entered, wraps banded_kernels' K1a and K3a wrappers (which still
+    count their launches) to record the shape of each call on the card:
+    `shapes` counts (kernel, W, words, PB, L, Lb), and `widest` keeps, per
+    (W, words), K3a's inputs (a, b, la, lb) of the call with the longest
+    rows (L, then Lb, then PB), so that the kernels can be held to their
+    plain versions at the shapes a path gave them."""
+
+    def __init__(self):
+        self.shapes = collections.Counter()
+        self.widest = {}
+
+    def __enter__(self):
+        from necat_tpu_torch.align import banded_kernels as bk
+        self.bk = bk
+        self.fwd, self.back = bk.banded_forward_adaptive, bk.adaptive_backtrack_cols
+
+        def fwd(a, b, la, lb, W, max_cols=None):
+            if a.is_cuda and a.shape[0]:
+                self.shapes[("banded_forward_adaptive", W, None, *a.shape, b.shape[1])] += 1
+            return self.fwd(a, b, la, lb, W, max_cols)
+
+        def back(dirs, offs, a, b, la, lb, W, words=1):
+            if a.is_cuda and a.shape[0]:
+                self.shapes[("adaptive_backtrack_cols", W, words, *a.shape, b.shape[1])] += 1
+                size = (a.shape[1], b.shape[1], a.shape[0])
+                if size > self.widest.get((W, words), ((0,), None))[0]:
+                    self.widest[(W, words)] = (size, [t.clone() for t in (a, b, la, lb)])
+            return self.back(dirs, offs, a, b, la, lb, W, words)
+
+        bk.banded_forward_adaptive, bk.adaptive_backtrack_cols = fwd, back
+        return self
+
+    def __exit__(self, *exc):
+        self.bk.banded_forward_adaptive, self.bk.adaptive_backtrack_cols = self.fwd, self.back
+
+    def lines(self) -> dict:
+        """"K1a|K3a W=.. [words=..] PB=.. L=.. Lb=..": calls."""
+        return {f"{'K1a' if name == ADAPTIVE[0] else 'K3a'} W={W}"
+                + (f" words={words}" if words else "") + f" PB={PB} L={L} Lb={Lb}": n
+                for (name, W, words, PB, L, Lb), n in sorted(
+                    self.shapes.items(), key=lambda kv: str(kv[0]))}
 
 
 def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
@@ -1594,8 +1834,8 @@ def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
     t_phase = time.perf_counter()
     kernels = {}
     for W in bk.KERNEL_WIDTHS:
-        kernels.update(check_adaptive_kernels(
-            dev, W, L=8192 if W == 128 else ADAPTIVE_L,
+        kernels.update(compare_adaptive(
+            *kernel_pairs(dev, W, L=8192 if W == 128 else ADAPTIVE_L), W,
             k3_words=(1, POLISH_WORDS) if W == POLISH_W else (1,)))
     checks_s = time.perf_counter() - t_phase
     store, main_cands, _, _ = main_inputs
@@ -1670,6 +1910,154 @@ def adaptive_ratios(kernels: dict, W: int = 128) -> dict:
     return out
 
 
+def _tie_verdict(key: str, path: str, got: dict, want: dict) -> str:
+    """"equal" where a file's digest is the reference's; "equal but the
+    ties" where it differs only in PIPELINE_TIES[key]'s records, each as
+    documented (the rest's digest is the reference's sha256_without_ties);
+    else "differs"."""
+    if got == {k: want.get(k) for k in ("sha256", "records")}:
+        return "equal"
+    ties = PIPELINE_TIES.get(key, {})
+    names = {t.split()[0] for t in ties}
+    if ties and got["records"] == want["records"] and \
+            set(ties) <= set(fasta_record_digests(path)) and \
+            fasta_digest(path, skip=names)["sha256"] == want["sha256_without_ties"]:
+        return "equal but the ties"
+    return "differs"
+
+
+def check_adaptive_pipeline(dev, launch_counts: dict, cfg_path: str, genome, smi: str) -> dict:
+    """With NECAT_TPU_NO_PALLAS set: (a) `cli assemble` and then `cli bridge`
+    --device cuda in a fresh project from phase 8's config (correct, trim,
+    assemble, polish; bridge, polish again); (b) phase 11b's bridge_contigs
+    of the five bench contigs on the card; (c) phase 7's planted insertions
+    through extend_candidates and correct_reads(rescue_long_indels=True) on
+    the card. Every stage file, (b)'s contigs written as FASTA, and (c)'s M4
+    and records must equal the JAX package's own CPU run
+    (JAX_CPU_PIPELINE_REFERENCE, JAX_CPU_BRIDGE_DIGEST,
+    JAX_CPU_LADDER_REFERENCE) by their digests, but for the records of
+    PIPELINE_TIES: cns_final's template 199, a float32 tie of the reference,
+    whose name trim keeps. There the rest of the file must equal the
+    reference and the record be the documented one. (The JAX package's trim
+    run on the port's cns_final writes the port's trimReads exactly:
+    scripts/jax_pipeline_reference.py --cns-final.) K1a and K3a must launch at
+    128 and 256 (K3a also with POLISH_WORDS insb words) in (a) and (b), and
+    at every rung of RUNGS in (c), where alone the adaptive band leaves pairs
+    hanging (in (a) and (b) none reaches the ladder, as in the reference);
+    K1, K2 and K3 never. The shape (PB, L, Lb) of every K1a and K3a call is
+    recorded by path (AdaptiveShapes), and at each (W, insb words) that the
+    phase launched, K1a and K3a are held to their plain versions on the
+    inputs of its call with the longest rows. Returns those kernel rows."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.bridge import bridge
+    from necat_tpu_torch.consensus.correct import correct_reads
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.io.readstore import ReadStore
+    from necat_tpu_torch.overlap.candidates import Candidates
+    from necat_tpu_torch.overlap.overlapper import extend_candidates
+    from necat_tpu_torch.pipeline import cli
+    from necat_tpu_torch.utils.benchdata import gen_benchmark_reads
+    t_phase = time.perf_counter()
+    path, prj = _project_config(cfg_path, "project_adaptive", "")
+    after_assemble = os.path.join(WORK, "adaptive_polished_assemble.fasta")
+    bench_fasta = os.path.join(WORK, "adaptive_bridged_bench.fasta")
+    _, store, _ = gen_benchmark_reads(genome_size=200_000, coverage=20, seed=7)
+    contigs = ReadStore.from_seqs(*bridge_bench_contigs(genome))
+    planted, pcands = planted_pairs()
+    walls, shapes = {}, {}
+
+    def timed(what, fn):
+        bk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with AdaptiveShapes() as shapes[what]:
+            out = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        launch_counts[f"adaptive-{what}"] = _launches(bk)
+        return out
+
+    if os.path.exists(after_assemble):
+        os.remove(after_assemble)
+    os.environ["NECAT_TPU_NO_PALLAS"] = "1"
+    try:
+        paths, _, stages = timed("pipeline", lambda: run_pipeline(
+            cli, path, prj, after_assemble, device="cuda"))
+        out = timed("bridge", lambda: bridge.bridge_contigs(contigs, store, device=dev))
+        m4, recs = timed("ladder", lambda: (
+            extend_candidates(pcands, planted, planted, device=dev),
+            correct_reads(planted, Candidates.concat([pcands, pcands.swap_roles()]),
+                          CnsOptions(rescue_long_indels=True), device=dev)))
+    finally:
+        os.environ.pop("NECAT_TPU_NO_PALLAS", None)
+    out.to_fasta(bench_fasta)
+    paths = {**paths, "bench_bridged": bench_fasta}
+    want = {**JAX_CPU_PIPELINE_REFERENCE["files"], "bench_bridged": JAX_CPU_BRIDGE_DIGEST}
+    got = {k: fasta_digest(p) for k, p in paths.items()}
+    verdict = {k: _tie_verdict(k, p, got[k], want.get(k, {})) for k, p in paths.items()}
+    ladder = {"m4": m4_digest(m4), "records": records_digest(recs)}
+    for k, v in ladder.items():
+        verdict[f"ladder_{k}"] = "equal" if v == JAX_CPU_LADDER_REFERENCE[k] else "differs"
+    with open(os.path.join(WORK, "adaptive_record_digests.json"), "w") as f:
+        json.dump({k: fasta_record_digests(p) for k, p in paths.items()}, f, indent=0)
+    draft = ReadStore.from_fasta(paths["contigs"])
+    polished = ReadStore.from_fasta(paths["polished_assemble"])
+    ident = {k: contig_identity(st, genome)[0] for k, st in (("draft", draft),
+                                                              ("polished", polished))}
+    counts = {k: launch_counts[f"adaptive-{k}"] for k in ("pipeline", "bridge", "ladder")}
+    res = {"walls_s": walls, "stages_s": stages, "verdict": verdict,
+           "digests": {**{k: v["sha256"][:16] for k, v in got.items()},
+                       **{f"ladder_{k}": v[:16] for k, v in ladder.items()}},
+           "records": {k: v["records"] for k, v in got.items()},
+           "contigs": draft.n_reads, "contig_n50": draft.n50()[0],
+           "draft_identity": ident["draft"], "polished_identity": ident["polished"],
+           "launches": {k: _by_width(c) for k, c in counts.items()},
+           "k3a_by_words": {k: {f"{w}x{n_w}": n for (w, n_w), n in
+                                sorted(c["k3a_by_words"].items())} for k, c in counts.items()},
+           "shapes": {k: v.lines() for k, v in shapes.items()},
+           "phase_s": time.perf_counter() - t_phase,
+           "jax_cpu_reference": JAX_CPU_ASSEMBLY_REFERENCE, "card": smi}
+    print("adaptive-pipeline " + json.dumps(res), flush=True)
+    stages_w = counts["pipeline"]["by_width"] + counts["bridge"]["by_width"]
+    ladder_w = counts["ladder"]["by_width"]
+    static = {(k, w): n for c in counts.values() for (k, w), n in c["by_width"].items()
+              if k not in ADAPTIVE and n}
+    missing = [(k, w) for k in ADAPTIVE for w in (128, POLISH_W) if not stages_w.get((k, w))]
+    missing += [(k, w) for k in ADAPTIVE for w in RUNGS if not ladder_w.get((k, w))]
+    if static or missing or not counts["pipeline"]["k3a_by_words"].get((POLISH_W,
+                                                                        POLISH_WORDS)):
+        raise AssertionError(
+            f"adaptive-pipeline: K1a and K3a must launch at 128 and {POLISH_W} (K3a also "
+            f"with {POLISH_WORDS} words) on the stages and at {RUNGS} on the ladder, "
+            f"K1/K2/K3 never; missing {missing}, static {static}")
+    differ = [k for k, v in verdict.items() if not v.startswith("equal")]
+    if differ:
+        raise AssertionError(f"adaptive-pipeline: {differ} differ from the JAX package's "
+                             f"CPU run (record digests in {WORK}/adaptive_record_digests.json)")
+    ref = JAX_CPU_ASSEMBLY_REFERENCE
+    if (draft.n_reads, draft.n50()[0], round(ident["draft"], 3),
+            round(ident["polished"], 3)) != (ref["contigs"], ref["contig_n50"],
+                                             ref["draft_identity"], ref["polished_identity"]):
+        raise AssertionError(f"adaptive-pipeline: contigs {res} differ from {ref}")
+    print(f"adaptive-pipeline: every file equals the JAX package's CPU run "
+          f"({json.dumps(verdict)})", flush=True)
+    # K1a and K3a against their plain versions on the longest call of each
+    # (W, words) of the three paths
+    widest = {}
+    for what, rec in shapes.items():
+        for key, (size, inputs) in rec.widest.items():
+            if size > widest.get(key, ((0,),))[0]:
+                widest[key] = (size, inputs, f"adaptive-{what}")
+    t0 = time.perf_counter()
+    kernels = {}
+    for (W, words), (_, inputs, what) in sorted(widest.items()):
+        kernels.update(compare_adaptive(*inputs, W, (words,), what))
+    print(f"adaptive-pipeline: K1a and K3a equal their plain versions on the longest "
+          f"call of each of {sorted(widest)} (W, insb words) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
@@ -1708,12 +2096,15 @@ def main() -> int:
     check_timing(dev, launch_counts, main_inputs, smi)
     kernels.update(check_adaptive(dev, launch_counts, main_inputs, smi))
     adaptive_ratios(kernels)
+    kernels.update(check_adaptive_pipeline(dev, launch_counts, cfg_path, genome, smi))
     check_stripes(cfg_path, smi)
-    elsewhere = {path: _by_width(c) for path, c in launch_counts.items() if path != "adaptive"
+    elsewhere = {path: _by_width(c) for path, c in launch_counts.items()
+                 if path not in ADAPTIVE_PATHS
                  and any(n for (k, _), n in c["by_width"].items() if k in ADAPTIVE)}
     if elsewhere:
-        raise AssertionError(f"K1a/K3a launched outside phase 20: {elsewhere}")
-    for (name, W, words), entry in kernels.items():
+        raise AssertionError(f"K1a/K3a launched outside phases 20 and 21: {elsewhere}")
+    for key, entry in kernels.items():
+        name, W, words = key[:3]
         words_key = {"banded_backtrack_cols": "k3_by_words",
                      "adaptive_backtrack_cols": "k3a_by_words"}.get(name)
         by_path = {path: (c[words_key].get((W, words), 0) if words_key

@@ -41,6 +41,89 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_chip_smoke_references_well_formed():
+    """chip_smoke's references of the JAX package's CPU runs that phases 20
+    and 21 hold the port to: hex sha256 digests with record counts, one per
+    stage file that phase 21 compares; every tie they allow has its entry in
+    ROADMAP.md's queue 3."""
+    import re
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    def sha(x):
+        return isinstance(x, str) and re.fullmatch("[0-9a-f]{64}", x) is not None
+
+    files = cs.JAX_CPU_PIPELINE_REFERENCE["files"]
+    assert set(files) == set(cs.pipeline_paths("prj", "polished.fasta"))
+    for key, entry in [*files.items(), ("bench_bridged", cs.JAX_CPU_BRIDGE_DIGEST)]:
+        tied = key in cs.PIPELINE_TIES
+        assert set(entry) == {"sha256", "records"} | ({"sha256_without_ties"} if tied else set())
+        assert sha(entry["sha256"]) and (not tied or sha(entry["sha256_without_ties"]))
+        assert isinstance(entry["records"], int) and entry["records"] >= 1
+    assert all(sha(cs.JAX_CPU_LADDER_REFERENCE[k]) for k in ("m4", "records"))
+    assert sha(cs.JAX_CPU_MAIN_REFERENCE["digest"])
+    assert sha(cs.JAX_CPU_MAIN_REFERENCE["digest_without_tie_flips"])
+    assert set(cs.JAX_CPU_MAIN_REFERENCE["tie_flips"]) == {str(t) for t in cs.MAIN_TIE_FLIPS}
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    queue3 = roadmap[roadmap.index("### Queue 3"):]
+    queue3 = queue3[:queue3.find("\n## ") if "\n## " in queue3 else None]
+    for tid in cs.MAIN_TIE_FLIPS:
+        assert f"template {tid}" in queue3
+    for key, ties in cs.PIPELINE_TIES.items():
+        assert key in files and ties
+        for port, ref in ties.items():
+            assert len(port.split()) == len(ref.split()) == 3
+            assert f"`{port.split()[0]}`" in queue3 and f"`{ref.split()[0]}`" in queue3
+
+
+def test_chip_smoke_run_pipeline(tmp_path):
+    """chip_smoke.run_pipeline, which phase 21 and both pipeline reference
+    scripts drive: assemble then bridge with --device, the assemble
+    command's polished contigs kept before bridge overwrites them, a
+    cns_final stand-in that correct returns, and a finished project only
+    read."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    class Project:
+        def run_correct(self, *, device="cuda"):
+            raise AssertionError("correct must not run")
+
+    class Cli:
+        calls = []
+
+        @classmethod
+        def main(cls, argv):
+            cls.calls.append(argv)
+            cns = Project().run_correct()
+            assert open(cns).read() == ">r\nACGT\n"
+            (prj / "polished_contigs.fasta").write_text(f">{argv[0]}\nACGT\n")
+            if argv[0] == "bridge":
+                done = prj / cs.STAGE_DIRS["bridge"] / "bridge.done.json"
+                done.parent.mkdir()
+                done.write_text('{"wall_s": 1.5}')
+            return 0
+
+    Cli.Project = Project
+    prj = tmp_path / "project"
+    prj.mkdir()
+    other = tmp_path / "other_cns.fasta"
+    other.write_text(">r\nACGT\n")
+    after = str(tmp_path / "after.fasta")
+    paths, walls, stages = cs.run_pipeline(Cli, "run.cfg", str(prj), after, device="cpu",
+                                           cns_final=str(other))
+    assert Cli.calls == [["assemble", "run.cfg", "--device", "cpu"],
+                         ["bridge", "run.cfg", "--device", "cpu"]]
+    assert set(walls) == set(stages) == {"assemble", "bridge"}
+    assert stages["bridge"] == {"bridge": 1.5}
+    assert open(paths["polished_assemble"]).read() == ">assemble\nACGT\n"
+    assert open(paths["polished_bridge"]).read() == ">bridge\nACGT\n"
+    assert open(paths["cns_final"]).read() == ">r\nACGT\n"
+    assert cs.run_pipeline(Cli, "run.cfg", str(prj), after)[1:] == ({}, {})
+    assert len(Cli.calls) == 2
+
+
 def test_cuda_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")
