@@ -156,14 +156,27 @@ Phases, each failing the run on error:
              is recorded by path, and at each (W, insb words) the phase
              launched, K1a and K3a are held to their plain versions (exact
              equality, times, bounds) on the inputs of its longest call.
-Phases 17-21 run before 16, which empties this process's
+ 22. legacy  the legacy two-program correction (CnsOptions(fused=False),
+             NECAT_TPU_FUSED=0: host acceptance, tags.scatter_pass_cols,
+             splice_rescue) against the fused flow, each timed beside a
+             fused run of the same inputs: (a) main's inputs, records equal
+             main's; (b) main's inputs with rescue_long_indels, records
+             equal the fused run's, lanes spliced printed; (c) main's
+             inputs with NECAT_TPU_NO_PALLAS, records equal phase 20's, with
+             no tie allowance; (d) `cli correct` with NECAT_TPU_FUSED=0 in a
+             fresh project from phase 8's config writes phase 8's cns_final
+             (sha256 of the content). K1 and K3 must launch at 128 in (a),
+             (b) and (d) and K1a and K3a not; in (c) K1a and K3a at 128 and
+             no other kernel.
+Phases 17-22 run before 16, which empties this process's
 allocator for its two processes. Stage retries are off (NECAT_TPU_MAX_STAGE_ERROR=1),
 so that none hides a failure. Phase 3 also runs W=256 (K3 with 1 insb word, as the bridge's mapping runs
 it, and 3, as polish runs it) and W=64 (so that K2 is held at every width
 of KERNEL_WIDTHS), and phase 6 K3 with 3 words at 1024. The launch counts are set to 0 before each path
 (main, rescue, correct, polish, assemble, bridge, bridge-cli, trim-accurate,
 small-memory, volumes, index, devices, timing, adaptive, adaptive-pipeline,
-adaptive-bridge, adaptive-ladder) and read after it; phase 16's launches run in other
+adaptive-bridge, adaptive-ladder, legacy, legacy-rescue, legacy-adaptive,
+legacy-cli) and read after it; phase 16's launches run in other
 processes, so they are read from the manifests. It prints one JSON line of kernel results, the card line,
 and last a JSON status line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before printing any result. It imports nothing of necat_tpu.
@@ -307,9 +320,10 @@ REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "adaptive_backtrack_cols": "necat_tpu/align/banded.py:112+:181"}
 ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
 # the adaptive band's kernels (NECAT_TPU_NO_PALLAS), and the paths (phases
-# 20 and 21) where they may launch
+# 20, 21 and 22c) where they may launch
 ADAPTIVE = ("banded_forward_adaptive", "adaptive_backtrack_cols")
-ADAPTIVE_PATHS = ("adaptive", "adaptive-pipeline", "adaptive-bridge", "adaptive-ladder")
+ADAPTIVE_PATHS = ("adaptive", "adaptive-pipeline", "adaptive-bridge", "adaptive-ladder",
+                  "legacy-adaptive")
 # Phase 20 holds K1a and K3a against their plain versions at L=8192 at
 # main's width (128) and at ADAPTIVE_L at the other widths: the plain
 # versions launch a few torch ops per column or op (4-8 s a call at 8192).
@@ -544,6 +558,32 @@ def _same_records(ra, rb) -> None:
         if ((x.tid, x.left, x.right, x.corrected) != (y.tid, y.left, y.right, y.corrected)
                 or not np.array_equal(x.seq, y.seq)):
             raise AssertionError(f"records differ at template {x.tid}")
+
+
+def record_differences(ra, rb, limit: int = 5) -> str:
+    """The templates whose records differ between two runs, each with its
+    first differing field: ra's value against rb's."""
+    by = [collections.defaultdict(list), collections.defaultdict(list)]
+    for d, recs in zip(by, (ra, rb)):
+        for r in recs:
+            d[r.tid].append(r)
+    out = []
+    for tid in sorted(set(by[0]) | set(by[1])):
+        xs, ys = by[0].get(tid, []), by[1].get(tid, [])
+        if len(xs) != len(ys):
+            out.append(f"{tid}: {len(xs)} records against {len(ys)}")
+            continue
+        for x, y in zip(xs, ys):
+            fields = [(f, getattr(x, f), getattr(y, f)) for f in ("left", "right", "corrected")]
+            fields.append(("len(seq)", len(x.seq), len(y.seq)))
+            n = min(len(x.seq), len(y.seq))
+            at = np.flatnonzero(x.seq[:n] != y.seq[:n])
+            fields.append(("seq at", int(at[0]) if len(at) else None, None))
+            diff = next(((f, a, b) for f, a, b in fields if a != b), None)
+            if diff:
+                out.append(f"{tid}: {diff[0]} {diff[1]} against {diff[2]}")
+                break
+    return f"{len(out)} template(s) differ: " + "; ".join(out[:limit])
 
 
 def slice_store():
@@ -1824,7 +1864,8 @@ def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
     KERNEL_WIDTHS; then main's search and correction again with
     NECAT_TPU_NO_PALLAS (the adaptive band): records held to the JAX
     package's default CPU run of the same inputs (JAX_CPU_MAIN_REFERENCE),
-    K1a and K3a launched and K1, K2 and K3 not. Returns the kernel rows."""
+    K1a and K3a launched and K1, K2 and K3 not. Returns the kernel rows and
+    the records."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import correct_reads
     from necat_tpu_torch.consensus.options import CnsOptions
@@ -1891,7 +1932,7 @@ def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
     print(f"adaptive: K1a and K3a equal their plain versions at {bk.KERNEL_WIDTHS}; main's "
           f"records equal the JAX package's default CPU run but for the float32 tie of "
           f"template(s) {MAIN_TIE_FLIPS} (digest {digest[:16]})", flush=True)
-    return kernels
+    return kernels, recs
 
 
 def adaptive_ratios(kernels: dict, W: int = 128) -> dict:
@@ -2058,6 +2099,116 @@ def check_adaptive_pipeline(dev, launch_counts: dict, cfg_path: str, genome, smi
     return kernels
 
 
+def check_legacy(dev, launch_counts: dict, main_inputs, adaptive_recs, cfg_path: str,
+                 smi: str) -> dict:
+    """The legacy two-program correction on the card against the fused
+    flow, each case timed beside a fused run of the same inputs: (a) main's
+    inputs, (b) with rescue_long_indels, (c) with NECAT_TPU_NO_PALLAS (its
+    records against phase 20's `adaptive_recs`), (d) `cli correct` with
+    NECAT_TPU_FUSED=0 in a fresh project from phase 8's config against
+    phase 8's cns_final. Records and files must be equal, with no tie
+    allowance. Returns the printed summary."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus import correct as correct_mod
+    from necat_tpu_torch.consensus.options import CnsOptions
+    from necat_tpu_torch.pipeline import cli
+    t_phase = time.perf_counter()
+    store, _, call, main_recs = main_inputs
+    res, recs = {}, {}
+    spliced = []
+    splice = correct_mod.splice_rescue
+
+    def run(what, opts, env=()):
+        """correct_reads of main's inputs with opts (and env set), timed,
+        its peak and, for a legacy run, its launches under `what`."""
+        os.environ.update(env)
+        correct_mod.splice_rescue = lambda *a: spliced.append(splice(*a)) or spliced[-1]
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bk.reset_launches()
+            t0 = time.perf_counter()
+            recs[what] = correct_mod.correct_reads(store, call, opts, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            correct_mod.splice_rescue = splice
+            for k in env:
+                os.environ.pop(k, None)
+        if what.startswith("legacy"):
+            launch_counts[what] = _launches(bk)
+        ncorr = len({r.tid for r in recs[what] if r.corrected})
+        res[what] = {"correct_s": wall, "corrected_reads": ncorr,
+                     "corrected_reads_per_s": ncorr / wall,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    no_pallas = {"NECAT_TPU_NO_PALLAS": "1"}
+    for what, opts, env in (("fused", CnsOptions(), {}),
+                            ("legacy", CnsOptions(fused=False), {}),
+                            ("fused-rescue", CnsOptions(rescue_long_indels=True), {}),
+                            ("legacy-rescue", CnsOptions(rescue_long_indels=True, fused=False),
+                             {}),
+                            ("fused-adaptive", CnsOptions(), no_pallas),
+                            ("legacy-adaptive", CnsOptions(fused=False), no_pallas)):
+        run(what, opts, env)
+    res["legacy-rescue"]["lanes_spliced"] = sum(spliced)
+    # (d) the command line in a fresh project, the mode from the environment
+    path, prj = _project_config(cfg_path, "project_legacy", "")
+    os.environ["NECAT_TPU_FUSED"] = "0"
+    try:
+        bk.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(["correct", path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("NECAT_TPU_FUSED", None)
+    launch_counts["legacy-cli"] = _launches(bk)
+    manifests = {}
+    for key, p in (("fused", os.path.join(WORK, "project")), ("legacy", prj)):
+        with open(os.path.join(p, "1-consensus", "correct.done.json")) as f:
+            manifests[key] = [{k: it[k] for k in ("candidates_s", "correct_s",
+                                                  "pairs_by_band")}
+                              for it in json.load(f)["iterations"]]
+    final = os.path.join(prj, PHASE10_FILES[0])
+    digests = {"legacy": fasta_digest(final) if rc == 0 else None,
+               "phase 8": fasta_digest(os.path.join(PHASE10,
+                                                    os.path.basename(PHASE10_FILES[0])))}
+    res["legacy-cli"] = {"wall_s": wall, "peak_mem_gib": torch.cuda.max_memory_allocated()
+                         / 2**30, "iterations": manifests, "cns_final": digests}
+    legacy_paths = ("legacy", "legacy-rescue", "legacy-adaptive", "legacy-cli")
+    summary = {**res, "launches": {k: _by_width(launch_counts[k]) for k in legacy_paths},
+               "phase_s": time.perf_counter() - t_phase, "card": smi}
+    print("legacy " + json.dumps(summary), flush=True)
+    for a, b, what in (("legacy", "fused", "(a) against the fused rerun"),
+                       ("fused", None, "(a) fused rerun against main"),
+                       ("legacy-rescue", "fused-rescue", "(b)"),
+                       ("legacy-adaptive", None, "(c) against phase 20"),
+                       ("fused-adaptive", None, "(c) fused rerun against phase 20")):
+        want = recs[b] if b else (adaptive_recs if "adaptive" in a else main_recs)
+        try:
+            _same_records(recs[a], want)
+        except AssertionError:
+            raise AssertionError(f"legacy {what}: {record_differences(recs[a], want)}"
+                                 ) from None
+    if rc != 0:
+        raise AssertionError(f"legacy (d): the command line exited {rc}")
+    if digests["legacy"] != digests["phase 8"]:
+        raise AssertionError(f"legacy (d): cns_final {digests['legacy']} differs from "
+                             f"phase 8's {digests['phase 8']}")
+    for what in legacy_paths:
+        ran = {k for (k, _), n in launch_counts[what]["by_width"].items() if n}
+        want = set(ADAPTIVE if what == "legacy-adaptive" else ON_PATH)
+        if ran != want or not all(launch_counts[what]["by_width"].get((k, 128)) for k in want):
+            raise AssertionError(f"legacy: {what} must launch {sorted(want)} at 128 and no "
+                                 f"other kernel: {_by_width(launch_counts[what])}")
+    print(f"legacy: records equal the fused flow's in (a)-(c) (main's, the rescue run's, "
+          f"phase 20's), cns_final phase 8's; {sum(spliced)} lanes spliced", flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (torch.cuda.is_available() is "
@@ -2094,15 +2245,17 @@ def main() -> int:
     check_index(dev, launch_counts, main_inputs, smi)
     check_devices(dev, launch_counts, main_inputs, cfg_path, smi)
     check_timing(dev, launch_counts, main_inputs, smi)
-    kernels.update(check_adaptive(dev, launch_counts, main_inputs, smi))
+    rows, adaptive_recs = check_adaptive(dev, launch_counts, main_inputs, smi)
+    kernels.update(rows)
     adaptive_ratios(kernels)
     kernels.update(check_adaptive_pipeline(dev, launch_counts, cfg_path, genome, smi))
+    check_legacy(dev, launch_counts, main_inputs, adaptive_recs, cfg_path, smi)
     check_stripes(cfg_path, smi)
     elsewhere = {path: _by_width(c) for path, c in launch_counts.items()
                  if path not in ADAPTIVE_PATHS
                  and any(n for (k, _), n in c["by_width"].items() if k in ADAPTIVE)}
     if elsewhere:
-        raise AssertionError(f"K1a/K3a launched outside phases 20 and 21: {elsewhere}")
+        raise AssertionError(f"K1a/K3a launched outside phases 20, 21 and 22c: {elsewhere}")
     for key, entry in kernels.items():
         name, W, words = key[:3]
         words_key = {"banded_backtrack_cols": "k3_by_words",

@@ -59,6 +59,9 @@ class ExtChunk:
     W: int
     ws: np.ndarray            # int64[n_real] window starts (absolute subject)
     group: int = 0
+    aq: Optional[np.ndarray] = None     # int32[PB] host copies of the desc's aq
+    at: Optional[np.ndarray] = None     # and at columns (at in window coordinates)
+    live: Optional[np.ndarray] = None   # bool[PB] lane liveness (splice_rescue kills lanes)
     _stats: Optional[np.ndarray] = None
 
     def stats(self) -> np.ndarray:
@@ -223,5 +226,41 @@ class ExtendEngine:
                 sync_dispatch("ext.device_exec", qdev.device)
             count_lanes(p["PB"], p["n_real"], p["L"])
             chunks.append(ExtChunk(out=out, sel=sel[p["take"]], n_real=p["n_real"],
-                                   L=p["L"], W=W, ws=p["ws"], group=p["group"]))
+                                   L=p["L"], W=W, ws=p["ws"], group=p["group"],
+                                   aq=p["desc"][:, 7].copy(), at=p["desc"][:, 8].copy(),
+                                   live=np.ones(p["PB"], bool)))
         return chunks
+
+
+def splice_rescue(all_chunks: List[ExtChunk], rescue_chunks: List[ExtChunk],
+                  stats: dict) -> int:
+    """Keep each rescued pair's wider-band result where it aligned at least
+    as many columns (the reference falls back to the small-band result
+    otherwise, consensus_aux.c:203-213); kill the losing lane, point
+    stats["lane"] at the winner and append rescue_chunks to all_chunks.
+    Returns the number of pairs whose result was replaced."""
+    improved = 0
+    for ci, ch in enumerate(rescue_chunks, start=len(all_chunks)):
+        st = ch.stats()
+        r = slice(0, ch.n_real)
+        idx = ch.sel
+        better = st[4, r] >= stats["n_cols"][idx]
+        for k, (p, b) in enumerate(zip(idx, better)):
+            if b:
+                oci, ok_ = stats["lane"][int(p)]
+                all_chunks[oci].live[ok_] = False
+                stats["lane"][int(p)] = (ci, k)
+            else:
+                ch.live[k] = False
+        upd = idx[better]
+        ur = np.flatnonzero(better)
+        stats["qoff"][upd] = st[0, ur]
+        stats["qend"][upd] = st[1, ur]
+        stats["toff"][upd] = st[2, ur] + ch.ws[ur]
+        stats["tend"][upd] = st[3, ur] + ch.ws[ur]
+        stats["n_cols"][upd] = st[4, ur]
+        stats["ident"][upd] = np.where(
+            st[4, ur] > 0, 100.0 * st[5, ur] / np.maximum(st[4, ur], 1), 0.0)
+        improved += int(better.sum())
+    all_chunks.extend(rescue_chunks)
+    return improved

@@ -1,7 +1,7 @@
 """Read correction driver: candidates -> wave-based extension -> tag consensus.
 
-Counterpart of necat_tpu/consensus/correct.py, fused mode, on one device or
-several: templates are bucketed (TB rows per consensus tensor) in
+Counterpart of necat_tpu/consensus/correct.py, on one device or several:
+templates are bucketed (TB rows per consensus tensor) in
 descending length order, buckets_per_supergroup (default: one per device)
 buckets a supergroup, bucket g on device g mod the devices with its
 tensors, chunks and consensus call (necat_tpu/consensus/fused.py:313-345);
@@ -14,6 +14,15 @@ whose extension stops > 200 bp short of the candidate climb a band-doubling
 ladder (W0 * rescue_band_scale, doubling up to rescue_band_max_scale and
 shapes.MAX_BAND).
 
+The legacy two-program flow (fused=False or NECAT_TPU_FUSED=0, fused_mode),
+the oracle the fused path is held to, runs on one device instead: each wave
+extends its chunks (ExtendEngine.submit), decides the identity cutoffs and
+acceptance on the host from the chunks' stats, then scatters each chunk's
+accepted lanes from its per-column buffers and gathered query rows
+(tags.scatter_pass_cols); its rescue ladder re-extends the hanging pairs on
+the same rungs and keeps the better result by splicing lanes
+(engine.splice_rescue).
+
 Wide insertion channels (3 * max_delta > 30, the polish stage's 22) do not
 fit the packed int32: the consensus comes back as a stream of emitted bases
 instead, and columns with strong insertion evidence or no clear majority
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from collections import Counter
 from typing import Dict, List
@@ -33,8 +43,9 @@ import numpy as np
 import torch
 
 from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG
-from necat_tpu_torch.align.engine import ExtendEngine, rescue_widths
-from necat_tpu_torch.consensus import fused
+from necat_tpu_torch.align.engine import (ExtendEngine, collect_stats, new_stats,
+                                         rescue_widths, splice_rescue)
+from necat_tpu_torch.consensus import fused, tags
 from necat_tpu_torch.consensus.backbone import (compact_from_packed, compact_from_stream,
                                                consensus_packed, consensus_stream,
                                                hot_insertion_mask)
@@ -46,7 +57,7 @@ from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_devices
-from necat_tpu_torch.utils.logging import logger, timed
+from necat_tpu_torch.utils.logging import logger, sync_dispatch, timed
 
 # seconds spent in each part of correct_reads, added up over its calls (the
 # polish stage clears it and records it in its manifest): "waves" (extension
@@ -89,14 +100,37 @@ def group_by_template(cands: Candidates, max_examined: int) -> Dict[int, np.ndar
     return groups
 
 
+def estimate_ident_cutoff(idents: np.ndarray) -> float:
+    """error_estimate.c:32-64 on the host in float64: mean - 5 * stddev
+    (population) over the top 70 % of idents (all of them when n < 8), 0
+    when n < 5."""
+    n = len(idents)
+    if n < 5:
+        return 0.0
+    idents = np.sort(idents)[::-1]
+    if n >= 8:
+        n = int(n * 0.7)
+    sel = idents[:n]
+    return float(sel.mean() - 5.0 * sel.std())
+
+
+def fused_mode(opts: CnsOptions) -> bool:
+    """True for the fused path (consensus/fused.py), the default; False for
+    the legacy two-program flow. NECAT_TPU_FUSED decides first ("0" and
+    "false" select the legacy flow, any other value the fused one), then
+    opts.fused (necat_tpu/consensus/correct.py:114-124)."""
+    v = os.environ.get("NECAT_TPU_FUSED")
+    if v is not None:
+        return v not in ("0", "false")
+    if opts.fused is not None:
+        return opts.fused
+    return True
+
+
 def _check_supported(opts: CnsOptions, store: ReadStore) -> None:
-    """The port runs the fused mode only; refuse the legacy two-program mode
-    rather than run something else."""
     if not isinstance(opts, CnsOptions) or not isinstance(store, ReadStore):
         raise TypeError("correct_reads takes necat_tpu_torch's CnsOptions and ReadStore, "
                         f"not {type(opts).__module__}/{type(store).__module__}")
-    if opts.fused is False:
-        raise NotImplementedError("necat_tpu_torch.correct_reads: fused=False not ported")
 
 
 def correct_reads(store: ReadStore, cands: Candidates,
@@ -124,9 +158,14 @@ def correct_reads(store: ReadStore, cands: Candidates,
 
     template_cuts (template id -> positions; wide-delta mode only) splits
     corrected pieces at those positions: the polish stage cuts its windows'
-    pieces at the core edges."""
+    pieces at the core edges.
+
+    The legacy two-program flow (fused_mode false) runs on one device, the
+    first of a list, as the JAX package runs it on its default device."""
     _check_supported(opts, store)
     devs = resolve_devices(device)
+    if not fused_mode(opts):
+        devs = devs[:1]
     groups = group_by_template(cands, opts.max_examined)
     min_need = opts.min_cov if min_cov_for_template is None else min_cov_for_template
     stripe = None if template_ids is None else {int(t) for t in template_ids}
@@ -191,7 +230,7 @@ class _Bucket:
 
 
 class _Tpl:
-    __slots__ = ("tid", "bucket", "row", "n", "cand_idx", "accepted")
+    __slots__ = ("tid", "bucket", "row", "n", "cand_idx", "cutoff", "accepted")
 
     def __init__(self, tid, bucket, row, n, cand_idx):
         self.tid = tid
@@ -199,6 +238,7 @@ class _Tpl:
         self.row = row
         self.n = n
         self.cand_idx = cand_idx
+        self.cutoff = np.nan     # the legacy flow's identity cutoff
         # wide delta: (qid, qdir, qoff, qend, toff, tend, weight) of each
         # accepted alignment, in wave order, for the hotspot repair
         self.accepted = []
@@ -453,6 +493,127 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
         round_id += 1
 
 
+def _run_waves_legacy(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
+                      id_map) -> None:
+    """The legacy two-program flow on engines[0]'s device
+    (necat_tpu/consensus/correct.py:369-499): per wave, every chunk is
+    extended, the stats of all of them are read, the identity cutoffs
+    (round 0) and acceptance are decided on the host in float64, and each
+    chunk's accepted lanes are then scattered by tags.scatter_pass_cols. With
+    rescue_long_indels the pairs that hang re-extend at each rung in turn;
+    splice_rescue keeps a rung's result where it aligned at least as many
+    columns and kills the losing lane. Every chunk of a wave, rescue chunks
+    included, holds its buffers on the device until its scatter."""
+    engine = engines[0]
+    TB = opts.templates_per_batch
+    estimating = not opts.use_fixed_ident_cutoff
+    if not estimating:
+        for t in tpls:
+            t.cutoff = 100.0 * (1.0 - opts.error)
+    round_id = 0 if estimating else 1        # consensus_one_read.c:273-278
+    max_rounds = -(-opts.max_examined // opts.wave_size) + 1
+    insb_words = _insb_words(opts)
+    local = (lambda ids: ids) if id_map is None else (
+        lambda ids: np.searchsorted(id_map, ids))
+    while round_id <= max_rounds:
+        wave = (opts.n_ident + 10) if round_id == 0 else opts.wave_size
+        with timed("cns.wave_build"):
+            p_tpl, p_ci, _ = _select_wave(st, cands, round_id, wave, opts.max_cov)
+        if len(p_tpl) == 0:
+            if round_id == 0:
+                round_id += 1
+                continue
+            break
+        npairs = len(p_ci)
+        tsize = st.tpl_n[p_tpl]
+        pairs = dict(qids=local(cands.qid[p_ci]), qdir=cands.qdir[p_ci].astype(np.int32),
+                     qsize=cands.qsize[p_ci].astype(np.int64),
+                     tg_base=engine.qdev.offsets[local(st.tpl_tid[p_tpl])], tsize=tsize,
+                     aq=cands.qbeg[p_ci].astype(np.int64),
+                     at_abs=cands.sbeg[p_ci].astype(np.int64), groups=st.tpl_bucket[p_tpl])
+
+        def submit(sel, W, pairs=pairs):
+            """Extend the pairs sel of this wave at band W."""
+            fused.pairs_by_band[W] += len(sel)
+            return engine.submit(sel, **{k: v[sel] for k, v in pairs.items()}, W=W,
+                                 insb_words=insb_words)
+
+        with timed("cns.extend_pairs_total"):
+            chunks = submit(np.arange(npairs), opts.band_width)
+            stats = new_stats(npairs)
+            collect_stats(chunks, stats)
+            if opts.rescue_long_indels:      # consensus_aux.c:152-157
+                for Wx in _rungs(opts):
+                    bad = np.flatnonzero(_hang(stats, cands, p_ci) > 200)
+                    if not len(bad):
+                        break
+                    splice_rescue(chunks, submit(bad, Wx), stats)
+
+        with timed("cns.accept"):
+            ql, qr, tl, tr = stats["qoff"], stats["qend"], stats["toff"], stats["tend"]
+            ident = stats["ident"]
+            qs = cands.qsize[p_ci]
+            ok_align = stats["n_cols"] >= opts.min_align_size
+            if round_id == 0:            # the identity cutoffs
+                good = fused.is_good_overlap(ql, qr, qs, tl, tr, tsize,
+                                             opts.good_end_margin) & ok_align
+                span = (((qr - ql) >= 0.6 * qs) | ((tr - tl) >= 0.6 * tsize)) & ok_align
+                for li in np.unique(p_tpl):
+                    sel = p_tpl == li
+                    idents = ident[sel][good[sel]][:opts.n_ident]
+                    if len(idents) < opts.n_ident:
+                        idents = ident[sel][span[sel]][:opts.n_ident]
+                    tpls[li].cutoff = estimate_ident_cutoff(idents)
+            cut = np.array([tpls[li].cutoff for li in p_tpl])
+            pass_ident = ident >= np.where(np.isnan(cut), 0.0, cut)
+            if round_id > 0:
+                pass_ident |= fused.is_full_cov_ovlp(ql, qr, qs, tl, tr, tsize, 5000, 100)
+            ok = ok_align & pass_ident & fused.check_mapping_range(
+                ql, qr, qs, tl, tr, tsize, opts.min_align_size, opts.mapping_ratio)
+            acc = np.flatnonzero(ok)
+            _apply_cov(st, p_tpl[acc], tl[acc], tr[acc])
+            w_all = fused.calc_cns_weight(torch.from_numpy(ident)).numpy()
+            if _wide_delta(opts):
+                for i in acc:
+                    ci = p_ci[i]
+                    tpls[p_tpl[i]].accepted.append(
+                        (int(cands.qid[ci]), int(cands.qdir[ci]), int(ql[i]), int(qr[i]),
+                         int(tl[i]), int(tr[i]), float(w_all[i])))
+
+        with timed("cns.scatter_round_total"):
+            for ch in chunks:
+                PB, r = len(ch.live), slice(0, ch.n_real)
+                lanes = np.zeros((4, PB), np.int64)      # row, tsize, at, aq
+                lanes[0] = TB
+                lanes[0, r] = np.where(ok[ch.sel] & ch.live[r], st.tpl_row[p_tpl[ch.sel]], TB)
+                lanes[1, r] = tsize[ch.sel]
+                lanes[2] = ch.at
+                lanes[2, r] += ch.ws
+                lanes[3] = ch.aq
+                w = np.zeros(PB, np.float32)
+                w[r] = w_all[ch.sel]
+                _scatter_chunk(buckets[ch.group], ch, lanes, w)
+                ch.release()
+        round_id += 1
+
+
+def _scatter_chunk(b: _Bucket, ch, lanes: np.ndarray, w: np.ndarray) -> None:
+    """Scatter one extended chunk into its bucket's tensors, both passes
+    (necat_tpu/consensus/correct.py:956-999, the scatter_pass_cols branch):
+    lanes int64[4, PB] = template row (TB drops the lane), template length,
+    template anchor, query anchor; w f32[PB] the pair weights."""
+    o = ch.out
+    dev = b.weights.device
+    row, tsz, at, aq = torch.from_numpy(lanes).to(dev)
+    w = torch.from_numpy(w).to(dev)
+    with timed("cns.scatter"):
+        for side, rev in (("right", False), ("left", True)):
+            tags.scatter_pass_cols(b.weights, b.covten, o[f"{side}_cols"], o[f"{side}_lead"],
+                                   o[f"{side}_jc"], o["qbatch"], aq, at, row, w, tsz,
+                                   reversed_part=rev)
+        sync_dispatch("cns.scatter_exec", dev)
+
+
 def _run_supergroup(store, engines, cands, groups, sg_ids, opts: CnsOptions, id_map):
     """Waves of one supergroup, then the consensus call of each bucket on its
     device; returns the buckets, their consensus downloaded, and the
@@ -470,7 +631,8 @@ def _run_supergroup(store, engines, cands, groups, sg_ids, opts: CnsOptions, id_
                 tpls.append(_Tpl(tid, len(buckets) - 1, row, int(b.tlens[row]),
                                  groups[tid]))
     t0 = time.perf_counter()
-    _run_waves(engines, cands, buckets, tpls, opts, _SelState(tpls), id_map)
+    run = _run_waves if fused_mode(opts) else _run_waves_legacy
+    run(engines, cands, buckets, tpls, opts, _SelState(tpls), id_map)
     t1 = time.perf_counter()
     with timed("cns.call_consensus"):
         for b in buckets:

@@ -45,8 +45,9 @@ _C = {k: i for i, k in enumerate(DESC_COLS + FUSED_EXTRA)}
 
 IDENT_SLOTS = 32        # round-0 ident buffer slots per template (>= n_ident+10)
 
-# pairs dispatch_wave ran at each band width W; the correct stage clears it
-# before each iteration and records it after
+# pairs dispatch_wave (or the legacy flow of correct.py) extended at each band
+# width W; the correct stage clears it before each iteration and records it
+# after
 pairs_by_band: Counter = Counter()
 
 _BUF_KEYS = ("left_cols", "left_insb", "left_lead", "left_leadb", "left_jc",

@@ -14,13 +14,18 @@ t = at - j). Each plane's landing tags are listed first (nonzero), so the
 additions, atomics on the card, touch only real cells: adding every masked
 cell as a 0 to the trash row cost three quarters of the device time of a
 correction run on an H100.
+
+scatter_pass_cols is the counterpart of the JAX package's scatter formulation
+of the same tags (tags.py:447), which its legacy two-program correction runs:
+the inserted bases come from the gathered query rows (qbatch) instead of the
+insb words, located on the query axis by a running maximum.
 """
 
 from __future__ import annotations
 
 import torch
 
-from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_PAD
+from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG, OP_PAD
 
 GAP_CODE = 4
 
@@ -96,3 +101,113 @@ def scatter_chunk(weights, coverage,
     _scatter_pass(weights, coverage, left_cols, left_insb, left_lead,
                   left_leadb, left_jc, at, pair_row, pair_w, tsize,
                   reversed_part=True)
+
+
+def pad_cols_to(x, Lt: int, fill: int):
+    """A per-column array's second dim made Lt: sliced when longer, padded
+    with `fill` when shorter (necat_tpu/consensus/tags.py:434)."""
+    P, MC = x.shape
+    if MC == Lt:
+        return x
+    if MC > Lt:
+        return x[:, :Lt]
+    return torch.cat([x, x.new_full((P, Lt - MC), fill)], dim=1)
+
+
+def scatter_pass_cols(weights, coverage, cols, lead, jc, qbatch, aq, at, pair_row,
+                      pair_w, tsize, reversed_part: bool) -> None:
+    """Scatter one extension pass's tags from its per-column encoding and the
+    gathered query rows qbatch u8[P, LQ] into weights [TB+1, D, 5, Lt] and
+    coverage i32[TB+1, Lt], IN PLACE (necat_tpu/consensus/tags.py:447).
+    aq: each pair's query anchor (a column of qbatch), at its template
+    anchor; pair_row == TB (or < 0) drops a pair.
+
+    Two passes:
+    * target axis [P, MC]: the delta-0 tag of every consumer column (query
+      base for DIAG, gap for DEL) and the coverage count;
+    * query axis [P, LQ]: every inserted query base. Each consuming
+      column's run start is written at its first query position
+      (scatter_reduce_ amax) and carried right by torch.cummax, so that a
+      query position knows its column j, the column's start qstart and its
+      cumulative consumption CQ, from which delta follows: forward qp -
+      qstart (+1 after a DEL), reversed CQ - qp (the reversal flips the
+      order of a run)."""
+    TBp1, D, _, Lt = weights.shape
+    TB = TBp1 - 1
+    P, MC = cols.shape
+    LQ = qbatch.shape[1]
+    dev = cols.device
+    wflat = weights.view(-1)
+    w = pair_w.to(weights.dtype)
+    row = pair_row.long()
+    row_ok = ((row >= 0) & (row < TB))[:, None]
+    tsz = tsize.long()[:, None]
+    at_, aq_, lead_, jc_ = (x.long() for x in (at, aq, lead, jc))
+    cols = cols.long()
+    op = cols & 3
+    k = cols >> 5
+    j = torch.arange(1, MC + 1, device=dev)[None, :]
+    notpad = op != OP_PAD
+    isdiag = (op == OP_DIAG) & notpad
+    isdel = (op == OP_DEL) & notpad
+    CQ = lead_[:, None] + torch.cumsum(isdiag.long() + torch.where(notpad, k, 0), dim=1)
+    # the query consumed up to the clip (insertions of column jc and later
+    # columns excluded)
+    selj = (jc_ - 1).clamp(0, MC - 1)[:, None]
+    qcons = torch.where(jc_ > 0, (CQ.gather(1, selj) - k.gather(1, selj))[:, 0], 0)
+
+    # target axis: delta-0 tags + coverage
+    qidx_diag = CQ - k - 1
+    if not reversed_part:
+        t_pos, q_abs = at_[:, None] + j - 1, aq_[:, None] + qidx_diag
+    else:
+        t_pos, q_abs = at_[:, None] - j, aq_[:, None] - 1 - qidx_diag
+    ok0 = (notpad & (j <= jc_[:, None]) & (t_pos >= 0) & (t_pos < tsz) & (t_pos < Lt)
+           & row_ok)
+    p0, c0 = ok0.nonzero(as_tuple=True)
+    t0 = t_pos[p0, c0]
+    qb = qbatch[p0, q_abs[p0, c0].clamp(0, LQ - 1)].long()
+    base = torch.where(isdel[p0, c0], GAP_CODE, qb)
+    wflat.index_add_(0, (row[p0] * D * 5 + base) * Lt + t0, w[p0])
+    coverage.view(-1).index_add_(0, row[p0] * Lt + t0,
+                                 torch.ones_like(t0, dtype=coverage.dtype))
+
+    # query axis: insertion tags (delta >= 1). A column's run starts at its
+    # own query position (DIAG) or its first inserted one (DEL); columns
+    # that consume no query write nothing
+    qstart = CQ - k - isdiag.long()
+    pc, cc = (notpad & ((k > 0) | isdiag)).nonzero(as_tuple=True)
+    lin = pc * LQ + qstart[pc, cc].clamp(0, LQ - 1)
+
+    def run_max(vals):
+        buf = torch.full((P * LQ,), -1, dtype=torch.long, device=dev)
+        return buf.scatter_reduce_(0, lin, vals[pc, cc], reduce="amax").view(P, LQ)
+
+    m_flag = run_max((j << 1) | isdiag.long())
+    m_qst = run_max(qstart)
+    m_cq = run_max(CQ)
+    # virtual column 0: the leading insertions (qstart 0, j 0, CQ lead)
+    qp = torch.arange(LQ, device=dev)[None, :]
+    virt = (qp == 0) & (lead_ > 0)[:, None] & (m_qst != 0)
+    m_flag = torch.where(virt, 0, m_flag)
+    m_cq = torch.where(virt, lead_[:, None], m_cq)
+    m_qst = torch.where(virt, 0, m_qst)
+    c_flag, c_qst, c_cq = (torch.cummax(x, dim=1).values for x in (m_flag, m_qst, m_cq))
+    j_of = c_flag >> 1
+    diag_of = (c_flag & 1) == 1
+    if not reversed_part:
+        delta = qp - c_qst + torch.where(diag_of, 0, 1)
+        t_ins, q_abs_i = at_[:, None] + j_of - 1, aq_[:, None] + qp
+    else:
+        delta = c_cq - qp
+        t_ins, q_abs_i = at_[:, None] - j_of - 1, aq_[:, None] - 1 - qp
+    okq = (c_flag >= 0) & (qp < qcons[:, None]) & (delta >= 1) & (delta < D)
+    if reversed_part:
+        # a DIAG column's own query position is its delta-0 tag (scattered
+        # above); the reversed formula would give it delta k + 1
+        okq &= ~(diag_of & (qp == c_qst))
+    okq &= (t_ins >= 0) & (t_ins < tsz) & (t_ins < Lt) & row_ok
+    pq, cq = okq.nonzero(as_tuple=True)
+    qb_i = qbatch[pq, q_abs_i[pq, cq].clamp(0, LQ - 1)].long()
+    wflat.index_add_(0, ((row[pq] * D + delta[pq, cq]) * 5 + qb_i) * Lt + t_ins[pq, cq],
+                     w[pq])

@@ -46,12 +46,6 @@ NO_COUNTERPART = (
     # first read (ext.stats_sync)
     "ext.stats_copy_issue",
     "cns.fused_stats_issue",
-    # the legacy two-program correction (_run_waves_legacy, fused=False),
-    # which the port refuses
-    "cns.scatter_round_total",
-    # its separate scatter program (_scatter_chunk), part of the same path
-    "cns.scatter",
-    "cns.scatter_exec",
 )
 
 

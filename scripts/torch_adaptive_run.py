@@ -44,7 +44,7 @@ def main() -> int:
     launch_counts = {}
     _, main_inputs = cs.main_path(dev, launch_counts)
     print(f"torch_adaptive_run: main done at {time.perf_counter() - t0:.1f} s", flush=True)
-    rows = cs.check_adaptive(dev, launch_counts, main_inputs, smi, dump=args.dump)
+    rows, _ = cs.check_adaptive(dev, launch_counts, main_inputs, smi, dump=args.dump)
     ratios = cs.adaptive_ratios({**static, **rows})
     print(f"torch_adaptive_run: {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -91,16 +91,16 @@ def test_cutoff_from_idents_matches_jax():
 
 
 def test_correct_reads_refuses_unported_modes():
-    """fused=False stays refused, and so does a list of devices holding one
-    that is no CPU or CUDA device; small_memory runs (without candidates
-    every read passes through uncorrected)."""
+    """A list of devices holding one that is no CPU or CUDA device stays
+    refused, and so do the JAX package's objects; small_memory and the
+    legacy flow (fused=False) run (without candidates every read passes
+    through uncorrected)."""
     jrs, rs = small_store(G=6000, coverage=2)
     empty = Candidates.concat([])
-    recs = correct_reads(rs, empty, CnsOptions(small_memory=True), device="cpu")
-    assert [r.tid for r in recs] == list(range(rs.n_reads))
-    assert not any(r.corrected for r in recs)
-    with pytest.raises(NotImplementedError):
-        correct_reads(rs, empty, CnsOptions(fused=False), device="cpu")
+    for opts in (CnsOptions(small_memory=True), CnsOptions(fused=False)):
+        recs = correct_reads(rs, empty, opts, device="cpu")
+        assert [r.tid for r in recs] == list(range(rs.n_reads))
+        assert not any(r.corrected for r in recs)
     with pytest.raises(ValueError):
         correct_reads(rs, empty, CnsOptions(), device=["cpu", "meta"])
     for store, opts in ((jrs, CnsOptions()), (rs, as_jax(CnsOptions()))):
