@@ -16,7 +16,7 @@ import torch
 
 from necat_tpu_torch.align.banded import TAIL_MATCH, extend_batch
 from necat_tpu_torch.io.devstore import gather_rows
-from necat_tpu_torch.utils import shapes
+from necat_tpu_torch.utils import logging as tlog, shapes
 from necat_tpu_torch.utils.logging import count_lanes, sync_dispatch, timed
 
 # descriptor columns (int32; DeviceReadStore guarantees offsets < 2^31)
@@ -29,6 +29,16 @@ def rescue_widths(band_width: int, scale: int, max_scale: int):
     while scale <= max_scale and band_width * scale <= shapes.MAX_BAND:
         yield band_width * scale
         scale *= 2
+
+
+def count_live_cols(desc: np.ndarray, n_real: int) -> None:
+    """Counter ext.live_Mcols of one planned chunk: the summed max(query,
+    window) length of its real lanes (desc columns 5 and 4, the length its
+    tier was chosen for), in millions. Host data, so no sync; nothing but a
+    flag test while timing is off."""
+    if tlog.TIMING_ON:
+        live = desc[:n_real]
+        tlog.count("ext.live_Mcols", int(np.maximum(live[:, 5], live[:, 4]).sum()) / 1e6)
 
 
 def gather_extend(qdev, sdev, desc: torch.Tensor, W: int, L: int,
@@ -225,6 +235,7 @@ class ExtendEngine:
                     out = gather_extend(qdev, sdev, desc, W, p["L"], insb_words=insb_words)
                 sync_dispatch("ext.device_exec", qdev.device)
             count_lanes(p["PB"], p["n_real"], p["L"])
+            count_live_cols(p["desc"], p["n_real"])
             chunks.append(ExtChunk(out=out, sel=sel[p["take"]], n_real=p["n_real"],
                                    L=p["L"], W=W, ws=p["ws"], group=p["group"],
                                    aq=p["desc"][:, 7].copy(), at=p["desc"][:, 8].copy(),

@@ -657,8 +657,12 @@ def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
                         template_cuts: dict) -> List[CnsRecord]:
     records: List[CnsRecord] = []
     for bi, b in enumerate(buckets):
+        # cns.compact keeps the JAX package's extent; its children
+        # cns.padded_batch and cns.compact_packed and the emission after it
+        # are the port's own (logging.PORT_ONLY)
         with timed("cns.compact"):
-            tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
+            with timed("cns.padded_batch"):
+                tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
             if b.stream is not None:
                 stream, cum_t, cov8, hot = b.stream
                 t0 = time.perf_counter()
@@ -666,9 +670,11 @@ def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
                 t1 = time.perf_counter()
                 cuts = {r_: template_cuts[int(b.ids[r_])] for r_ in range(b.n_real)
                         if int(b.ids[r_]) in template_cuts}
-                pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
-                                             opts.min_cov, opts.min_size, opts.raw_min_gap,
-                                             overrides=overrides, cut_at=cuts)
+                with timed("cns.compact_packed"):
+                    pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
+                                                 opts.min_cov, opts.min_size,
+                                                 opts.raw_min_gap, overrides=overrides,
+                                                 cut_at=cuts)
                 seconds_by_part["overrides"] += t1 - t0
             else:
                 t1 = time.perf_counter()
@@ -676,10 +682,12 @@ def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
                 # threshold drops to 0.85*min_size (cbcns.c:200)
                 min_run = (max(1, int(opts.min_size * 0.85))
                            if opts.full_consensus else None)
-                pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
-                                             opts.min_size, opts.raw_min_gap,
-                                             max_delta=opts.max_delta, min_run=min_run)
-        records.extend(_emit_records(b, pieces, tbatch_np, opts))
+                with timed("cns.compact_packed"):
+                    pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
+                                                 opts.min_size, opts.raw_min_gap,
+                                                 max_delta=opts.max_delta, min_run=min_run)
+        with timed("cns.emit_records"):
+            records.extend(_emit_records(b, pieces, tbatch_np, opts))
         seconds_by_part["compact"] += time.perf_counter() - t1
     return records
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from necat_tpu_torch.align.banded import TAIL_MATCH
-from necat_tpu_torch.align.engine import DESC_COLS, gather_extend
+from necat_tpu_torch.align.engine import DESC_COLS, count_live_cols, gather_extend
 from necat_tpu_torch.consensus.tags import scatter_chunk
 from necat_tpu_torch.utils.logging import count_lanes, sync_dispatch, timed
 
@@ -129,12 +129,13 @@ def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
     ok &= ~deferred
     w = torch.where(ok, calc_cns_weight(ident), 0.0)
     row_eff = torch.where(ok, c["row"], TB)
-    scatter_chunk(weights, coverage,
-                  bufs["left_cols"], bufs["left_insb"], bufs["left_lead"],
-                  bufs["left_leadb"], bufs["left_jc"],
-                  bufs["right_cols"], bufs["right_insb"], bufs["right_lead"],
-                  bufs["right_leadb"], bufs["right_jc"],
-                  c["at"] + c["ws"], row_eff, w, ts)
+    with timed("cns.tag_scatter"):
+        scatter_chunk(weights, coverage,
+                      bufs["left_cols"], bufs["left_insb"], bufs["left_lead"],
+                      bufs["left_leadb"], bufs["left_jc"],
+                      bufs["right_cols"], bufs["right_insb"], bufs["right_lead"],
+                      bufs["right_leadb"], bufs["right_jc"],
+                      c["at"] + c["ws"], row_eff, w, ts)
     return torch.cat([stats6, ok.to(torch.int32)[None],
                       deferred.to(torch.int32)[None]], dim=0)
 
@@ -305,6 +306,7 @@ def dispatch_wave(engines, *, qids, qdir, qsize, tg_base, tsize_full, aq,
                         tail_match=tail_match, insb_words=insb_words)
             sync_dispatch(f"cns.fused_exec_L{p['L']}_PB{p['PB']}", eng.device)
         count_lanes(p["PB"], p["n_real"], p["L"])
+        count_live_cols(desc, p["n_real"])
         chunks.append(FusedChunk(stats, p["take"], p["n_real"], p["ws"], g,
                                  bufs=bufs, desc_dev=desc_dev))
     return chunks

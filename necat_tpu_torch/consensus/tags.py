@@ -13,7 +13,8 @@ tag plane is one index_add_ on flat indices, computed in the column domain
 t = at - j). Each plane's landing tags are listed first (nonzero), so the
 additions, atomics on the card, touch only real cells: adding every masked
 cell as a 0 to the trash row cost three quarters of the device time of a
-correction run on an H100.
+correction run on an H100. Each listing is a device-to-host sync, timed as
+cns.scatter_sync: eight a chunk.
 
 scatter_pass_cols is the counterpart of the JAX package's scatter formulation
 of the same tags (tags.py:447), which its legacy two-program correction runs:
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG, OP_PAD
+from necat_tpu_torch.utils.logging import timed
 
 GAP_CODE = 4
 
@@ -53,7 +55,8 @@ def _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
     op = cols & 3
     ok0 = (row_ok & (t >= 0) & (t < tsize[:, None]) & (t < Lt)
            & (j <= jc[:, None]) & (op != OP_PAD))
-    p0, c0 = ok0.nonzero(as_tuple=True)
+    with timed("cns.scatter_sync"):
+        p0, c0 = ok0.nonzero(as_tuple=True)
     t0 = t[p0, c0]
     v0 = cols[p0, c0]
     base0 = torch.where((v0 & 3) == OP_DEL, GAP_CODE, (v0 >> 3) & 3).long()
@@ -69,8 +72,10 @@ def _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
     k = torch.where(op != OP_PAD, cols >> 5, 0)
     ok_i = (row_ok & (t_ins >= 0) & (t_ins < tsize[:, None]) & (t_ins < Lt)
             & (j <= jc[:, None] - 1) & (k > 0))
-    p1, c1 = ok_i.nonzero(as_tuple=True)
-    e, dm = (k[p1, c1, None] > torch.arange(nd, device=dev)).nonzero(as_tuple=True)
+    with timed("cns.scatter_sync"):
+        p1, c1 = ok_i.nonzero(as_tuple=True)
+    with timed("cns.scatter_sync"):
+        e, dm = (k[p1, c1, None] > torch.arange(nd, device=dev)).nonzero(as_tuple=True)
     p, c = p1[e], c1[e]
     word, dl = torch.div(dm, N_INSB, rounding_mode="floor"), dm % N_INSB
     bits = torch.stack(insb)[word, p, c]
@@ -80,8 +85,9 @@ def _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
     # leading insertions (before column 1) at t = at - 1, from leadb
     tl = at.long() - 1
     okl = row_ok[:, 0] & (tl >= 0) & (tl < tsize) & (jc > 0)
-    pl, dm = ((lead[:, None] > torch.arange(nd, device=dev)) & okl[:, None]
-              ).nonzero(as_tuple=True)
+    with timed("cns.scatter_sync"):
+        pl, dm = ((lead[:, None] > torch.arange(nd, device=dev)) & okl[:, None]
+                  ).nonzero(as_tuple=True)
     add(pl, dm + 1, leadb[pl, dm].long(), tl[pl])
 
 

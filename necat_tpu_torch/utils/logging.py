@@ -27,9 +27,20 @@ if not logger.handlers:
 # the device inside its *exec* scope (sync_dispatch). The host threads of
 # parallel/mesh.shard_stats time scopes at once, hence the lock, which the
 # JAX package's single host thread did not need.
+#
+# A scope is also a span on the profiler's clock. While a torch.profiler
+# runs, each scope opens a record_function range of its name, so that the
+# device trace puts an idle gap down to the scope open at the time. With
+# NECAT_TPU_TRACE=<file> (which implies timing; read at import, TRACE_PATH)
+# each scope is kept as a span, with an id, the id of the span open around
+# it on the same thread (0 for none) and its start and end from
+# time.time_ns(), the Unix-epoch clock torch.profiler stamps its events
+# with; at exit the spans go to <file> as a Chrome trace (write_trace).
 import atexit as _atexit
 import collections as _collections
 import contextlib as _contextlib
+import itertools as _itertools
+import json as _json
 import os as _os
 import threading as _threading
 import time as _time
@@ -37,7 +48,13 @@ import time as _time
 _TIMERS = _collections.Counter()
 _COUNTS = _collections.Counter()
 _LOCK = _threading.Lock()
-TIMING_ON = bool(_os.environ.get("NECAT_TPU_TIMING"))
+TRACE_PATH = _os.environ.get("NECAT_TPU_TRACE") or None
+TIMING_ON = bool(_os.environ.get("NECAT_TPU_TIMING")) or TRACE_PATH is not None
+
+Span = _collections.namedtuple("Span", "name id parent thread start_ns end_ns")
+_SPANS: list = []                   # Span tuples, while TRACE_PATH is set
+_IDS = _itertools.count(1)          # span ids; next() on it is atomic
+_LOCAL = _threading.local()         # .state: _thread_state()
 
 # The JAX package's scope names that the port has no code for.
 NO_COUNTERPART = (
@@ -48,22 +65,89 @@ NO_COUNTERPART = (
     "cns.fused_stats_issue",
 )
 
+# The names the port records and the JAX package does not.
+PORT_ONLY = (
+    # the fused path's tag scatter (fused._accept_and_scatter), inside
+    # cns.fused_call; the JAX package's scatter is part of its one fused
+    # program, with nothing to time on the host
+    "cns.tag_scatter",
+    # host seconds blocked at the scatter's nonzero calls (tags._scatter_pass,
+    # four per pass, two passes a chunk), each a device-to-host sync that
+    # waits for all work queued before it; the JAX package's matrix-product
+    # scatter has fixed shapes and no sync
+    "cns.scatter_sync",
+    # the two parts of cns.compact: the raw template rows
+    # (ReadStore.padded_batch) and the per-template decoding of the
+    # consensus (compact_from_packed / compact_from_stream)
+    "cns.padded_batch",
+    "cns.compact_packed",
+    # record emission (correct._emit_records), after cns.compact, which the
+    # JAX package does not time
+    "cns.emit_records",
+    # counter: the summed max(query, window) length of a chunk's real lanes,
+    # which its length tier was chosen for, in millions; over
+    # ext.cell_Mlanes (lanes x tier) it is the share of the planned cells
+    # that hold work
+    "ext.live_Mcols",
+)
+
+
+def _thread_state() -> tuple:
+    """(the ids of this thread's open spans, its native thread id). The id is
+    read once per thread: it is a system call, which on a loaded host costs
+    far more than the rest of a span's bookkeeping."""
+    st = getattr(_LOCAL, "state", None)
+    if st is None:
+        st = _LOCAL.state = ([], _threading.get_native_id())
+    return st
+
 
 @_contextlib.contextmanager
 def timed(name: str):
     """Add the wall-clock seconds of the block to scope `name`, and one call
-    (nothing but a flag test while timing is off)."""
+    (nothing but a flag test while timing is off); a profiler range of the
+    name while a torch.profiler runs, and a span while TRACE_PATH is set."""
     if not TIMING_ON:
         yield
         return
+    # no torch imported, no profiler running: the logger stays free of torch
+    prof = sys.modules.get("torch.autograd.profiler")
+    rng = (prof.record_function(name) if getattr(prof, "_is_profiler_enabled", False)
+           else _contextlib.nullcontext())
+    st = None
+    if TRACE_PATH is not None:
+        st, tid = _thread_state()
+        sid, parent = next(_IDS), (st[-1] if st else 0)
+        st.append(sid)
+    # the span is stamped outside the range: the profiler's first range in
+    # a process stamps its start before a set-up of about a millisecond,
+    # which then falls inside the span, not between the two starts
     t0 = _time.perf_counter()
+    w0 = _time.time_ns() if st is not None else 0
     try:
-        yield
+        with rng:
+            yield
     finally:
+        w1 = _time.time_ns() if st is not None else 0
         dt = _time.perf_counter() - t0
+        span = None
+        if st is not None:
+            st.pop()
+            span = Span(name, sid, parent, tid, w0, w1)
         with _LOCK:
             _TIMERS[name] += dt
             _COUNTS[name] += 1
+            if span is not None:
+                _SPANS.append(span)
+
+
+def count(name: str, value: float) -> None:
+    """Add `value` to counter `name` (reported with 0 calls; nothing but a
+    flag test while timing is off)."""
+    if not TIMING_ON:
+        return
+    with _LOCK:
+        _TIMERS[name] += value
 
 
 def count_lanes(lanes: int, real: int, length: int) -> None:
@@ -97,11 +181,31 @@ def timing_report(ndigits: int | None = 2) -> dict:
                 for k, v in _TIMERS.most_common()}
 
 
+def spans() -> list:
+    """The kept spans (Span tuples), in the order they ended."""
+    with _LOCK:
+        return list(_SPANS)
+
+
 def reset_timers() -> None:
-    """Clear every scope and counter (to measure one run)."""
+    """Clear every scope, counter and span (to measure one run)."""
     with _LOCK:
         _TIMERS.clear()
         _COUNTS.clear()
+        _SPANS.clear()
+
+
+def write_trace(path) -> None:
+    """Write the kept spans to `path` as a Chrome trace: one complete ("X")
+    event per span, in microseconds since the Unix epoch (the clock of
+    torch.profiler's own trace, so that Perfetto shows both on one
+    timeline), the span's id and parent in its args."""
+    pid = _os.getpid()
+    events = [{"name": s.name, "ph": "X", "ts": s.start_ns / 1e3,
+               "dur": (s.end_ns - s.start_ns) / 1e3, "pid": pid, "tid": s.thread,
+               "args": {"id": s.id, "parent": s.parent}} for s in spans()]
+    with open(path, "w") as f:
+        _json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
 
 
 if TIMING_ON:
@@ -111,3 +215,5 @@ if TIMING_ON:
         # line) stays its own
         for k, (v, c) in timing_report().items():
             print(f"[timing] {k}: {v}s over {c} calls", file=sys.stderr)
+        if TRACE_PATH is not None:
+            write_trace(TRACE_PATH)

@@ -29,6 +29,10 @@ T = torch.from_numpy
 CNS = CnsOptions(templates_per_batch=4, pairs_per_chunk=32)
 LEGACY = dataclasses.replace(CNS, fused=False)
 LANES = ("ext.lanes", "ext.real_lanes", "ext.cell_Mlanes")
+# the port-only names (logging.PORT_ONLY) of the legacy flow: it has no
+# fused tag scatter
+LEGACY_PORT_ONLY = {"cns.padded_batch", "cns.compact_packed", "cns.emit_records",
+                    "ext.live_Mcols"}
 
 
 def same_records(recs_a, recs_b):
@@ -220,12 +224,15 @@ def test_legacy_on_a_device_list_runs_one_device(slice_runs):
 @pytest.mark.parametrize("mode", ["on", "sync"])
 def test_legacy_scope_names_and_calls_match_jax(slice_runs, mode):
     """In the legacy flow the port times the JAX package's scopes, less
-    NO_COUNTERPART, as many times each, and counts the same lanes; with
-    NECAT_TPU_SYNC_DISPATCH the scatter waits in cns.scatter_exec."""
+    NO_COUNTERPART, as many times each, and counts the same lanes; besides
+    them it records its own names of this path (logging.PORT_ONLY), and
+    nothing else; with NECAT_TPU_SYNC_DISPATCH the scatter waits in
+    cns.scatter_exec."""
     port_rep = slice_runs[mode]["port"][1]
     jax_rep = slice_runs[mode]["jax"][1]
     want = set(jax_rep) - set(tlogging.NO_COUNTERPART)
-    assert set(port_rep) == want
+    assert LEGACY_PORT_ONLY <= set(tlogging.PORT_ONLY)
+    assert set(port_rep) == want | LEGACY_PORT_ONLY
     legacy = {"cns.scatter_round_total", "cns.scatter", "cns.accept", "cns.wave_build",
               "cns.extend_pairs_total", "ext.dispatch", "ext.stats_sync"}
     assert legacy <= want and not any(k.startswith("cns.fused") for k in want)
