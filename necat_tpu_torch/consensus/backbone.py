@@ -4,16 +4,18 @@ necat_tpu/consensus/backbone.py).
 Per template column a thresholded weighted majority: delta 0 emits the
 argmax base (a gap wins as a deletion) where coverage >= min_cov; delta
 k >= 1 emits its argmax ACGT where the weight clears ins_frac * cov +
-ins_offset. Up to max_delta 10 the calls are packed into one int32 per
-column for the host decode compact_from_packed; wider deltas (polish, 22)
-compact the emitted bases on the device into a stream (consensus_stream)
-for compact_from_stream, and hot_insertion_mask marks the columns the host
-link DP repairs.
+ins_offset. The correction path compacts the emitted bases on the device,
+for every max_delta, into a stream (consensus_stream) that the host only
+slices into pieces (compact_from_stream), reading the templates in place;
+with wide deltas (polish, 22) hot_insertion_mask also marks the columns the
+host link DP repairs. consensus_packed (3-bit fields in one int32 per
+column, up to max_delta 10) and its host decode compact_from_packed are the
+JAX package's counterparts and the stream path's oracle.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,19 +174,23 @@ def compact_from_stream(
     cum_t: np.ndarray,     # int32[TB, L]
     coverage: np.ndarray,  # int[TB, L]
     tlens: np.ndarray,
-    templates: np.ndarray,
+    templates: Sequence[np.ndarray],   # uint8[TB, L], or one row (a view) a template
     min_cov: int,
     min_size: int,
     raw_min_gap: int,
     overrides: dict | None = None,   # row -> {t -> np.ndarray of bases}
     cut_at: dict | None = None,      # row -> template positions to cut runs at
+    min_run: int | None = None,
 ) -> List[Tuple[List[Tuple[int, int, np.ndarray]], List[Tuple[int, int, np.ndarray]]]]:
     """Host side of consensus_stream: per template (cns_pieces, raw_pieces)
-    as compact_from_packed gives them. `overrides` replaces the emitted bases
-    of single template positions (the link-DP hotspot repair, consensus/
-    correct.py _bucket_hot_overrides); `cut_at` splits covered runs at the
-    given positions so that no piece spans them (the window seams of
-    polish/polish.py)."""
+    as compact_from_packed gives them, with the same min_run (covered runs
+    shorter than it are dropped; default min_size). `overrides` replaces the
+    emitted bases of single template positions (the link-DP hotspot repair,
+    consensus/correct.py _bucket_hot_overrides); `cut_at` splits covered
+    runs at the given positions so that no piece spans them (the window
+    seams of polish/polish.py)."""
+    if min_run is None:
+        min_run = min_size
     out = []
     for b in range(stream.shape[0]):
         n = int(tlens[b])
@@ -211,7 +217,7 @@ def compact_from_stream(
                 e2.append(int(e))
             starts, ends = s2, e2
         for s, e in zip(starts, ends):
-            if e - s < min_size:
+            if e - s < min_run:
                 continue
             lo = int(cum_t[b, s - 1]) if s > 0 else 0
             hi = int(cum_t[b, e - 1])

@@ -8,8 +8,10 @@ tensors, chunks and consensus call (necat_tpu/consensus/fused.py:313-345);
 per supergroup, the reference's per-template wave loop
 (consensus_one_read.c:317-372) runs as host-side selection over a coverage
 mirror, every chunk of a wave runs gather -> extend -> accept -> scatter on
-the device (consensus/fused.py), and the consensus of each bucket comes back
-as one packed int32 per template column. With rescue_long_indels, pairs
+the device (consensus/fused.py), and the consensus of each bucket is
+compacted on the device into a stream of its emitted bases
+(backbone.consensus_stream), which the host slices into pieces beside the
+templates' rows, read in place from the store. With rescue_long_indels, pairs
 whose extension stops > 200 bp short of the candidate climb a band-doubling
 ladder (W0 * rescue_band_scale, doubling up to rescue_band_max_scale and
 shapes.MAX_BAND).
@@ -23,11 +25,11 @@ accepted lanes from its per-column buffers and gathered query rows
 the same rungs and keeps the better result by splicing lanes
 (engine.splice_rescue).
 
-Wide insertion channels (3 * max_delta > 30, the polish stage's 22) do not
-fit the packed int32: the consensus comes back as a stream of emitted bases
-instead, and columns with strong insertion evidence or no clear majority
-(hot_insertion_mask) are re-derived on the host by the reference link DP
-over the accepted alignments (_bucket_hot_overrides).
+Wide insertion channels (3 * max_delta > 30, the polish stage's 22, past
+the JAX package's packed int32): columns with strong insertion evidence or
+no clear majority (hot_insertion_mask) are re-derived on the host by the
+reference link DP over the accepted alignments (_bucket_hot_overrides), and
+pieces are cut at the polish windows' seams.
 """
 
 from __future__ import annotations
@@ -46,8 +48,7 @@ from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG
 from necat_tpu_torch.align.engine import (ExtendEngine, collect_stats, new_stats,
                                          rescue_widths, splice_rescue)
 from necat_tpu_torch.consensus import fused, tags
-from necat_tpu_torch.consensus.backbone import (compact_from_packed, compact_from_stream,
-                                               consensus_packed, consensus_stream,
+from necat_tpu_torch.consensus.backbone import (compact_from_stream, consensus_stream,
                                                hot_insertion_mask)
 from necat_tpu_torch.consensus.linkdp import (consensus_linkdp, host_edit_ops,
                                              tags_from_ops)
@@ -57,7 +58,7 @@ from necat_tpu_torch.io.readstore import ReadStore
 from necat_tpu_torch.overlap.candidates import Candidates
 from necat_tpu_torch.utils import shapes
 from necat_tpu_torch.utils.device import resolve_devices
-from necat_tpu_torch.utils.logging import logger, sync_dispatch, timed
+from necat_tpu_torch.utils.logging import count, logger, sync_dispatch, timed
 
 # seconds spent in each part of correct_reads, added up over its calls (the
 # polish stage clears it and records it in its manifest): "waves" (extension
@@ -212,7 +213,7 @@ class _Bucket:
     """TB template rows with their consensus tensors on the device. Weights
     accumulate in float64: the sums of the f32 pair weights are exact there,
     so the result does not depend on the order of the additions (atomics on
-    the card, sequential on the CPU); consensus_packed reads them as f32."""
+    the card, sequential on the CPU); the consensus call reads them as f32."""
 
     def __init__(self, store, ids, TB, D, device):
         self.n_real = len(ids)
@@ -225,8 +226,9 @@ class _Bucket:
                                    device=device)
         self.covten = torch.zeros((TB + 1, self.Lt), dtype=torch.int32,
                                   device=device)
-        self.packed = None       # consensus_packed, on the host
-        self.stream = None       # wide delta: (stream, cum_t, cov8, hot), on the host
+        # consensus_stream's (stream, cum_t, cov8), and on the wide-delta
+        # path hot_insertion_mask's hot, on the host
+        self.stream = None
 
 
 class _Tpl:
@@ -323,7 +325,9 @@ def _apply_cov(st: _SelState, li_acc, tl_acc, tr_acc) -> None:
 
 
 def _wide_delta(opts: CnsOptions) -> bool:
-    """3-bit fields of max_delta columns do not fit an int32 past D = 10."""
+    """The wide-delta mode (polish): past D = 10, where the JAX package's
+    3-bit fields of max_delta columns no longer fit an int32, the hotspot
+    repair and the window cuts apply."""
     return 3 * opts.max_delta > 30
 
 
@@ -637,17 +641,17 @@ def _run_supergroup(store, engines, cands, groups, sg_ids, opts: CnsOptions, id_
     with timed("cns.call_consensus"):
         for b in buckets:
             w, cov = b.weights[:TB].to(torch.float32), b.covten[:TB]
-            args = (opts.min_cov, opts.ins_frac, opts.ins_offset)
+            stream, cum_t, _, cov8 = consensus_stream(w, cov, opts.min_cov, opts.ins_frac,
+                                                      opts.ins_offset)
+            out = [stream, cum_t, cov8]
             if _wide_delta(opts):
-                hot = hot_insertion_mask(w, cov, opts.min_cov)
-                stream, cum_t, _, cov8 = consensus_stream(w, cov, *args)
-                with timed("cns.download"):
-                    b.stream = tuple(x.cpu().numpy() for x in (stream, cum_t, cov8, hot))
-            else:
-                packed = consensus_packed(w, cov, *args)
-                with timed("cns.download"):
-                    b.packed = packed.cpu().numpy()
-            b.weights = b.covten = w = cov = packed = None   # free the tensors early
+                out.append(hot_insertion_mask(w, cov, opts.min_cov))
+            elif opts.min_cov > 255:     # cov8 saturates; coverage is read exactly here
+                out[2] = cov
+            with timed("cns.download"):
+                b.stream = tuple(x.cpu().numpy() for x in out)
+            count("cns.download_MB", sum(x.nbytes for x in b.stream) / 1e6)
+            b.weights = b.covten = w = cov = stream = cum_t = cov8 = out = None   # free early
     seconds_by_part["waves"] += t1 - t0
     seconds_by_part["consensus"] += time.perf_counter() - t1
     return buckets, tpls
@@ -658,42 +662,37 @@ def _compact_supergroup(store, buckets, tpls, opts: CnsOptions,
     records: List[CnsRecord] = []
     for bi, b in enumerate(buckets):
         # cns.compact keeps the JAX package's extent; its children
-        # cns.padded_batch and cns.compact_packed and the emission after it
-        # are the port's own (logging.PORT_ONLY)
+        # cns.padded_batch (the template rows, views of the store) and
+        # cns.compact_packed (the stream sliced into pieces) and the emission
+        # after it are the port's own (logging.PORT_ONLY)
         with timed("cns.compact"):
             with timed("cns.padded_batch"):
-                tbatch_np, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
-            if b.stream is not None:
-                stream, cum_t, cov8, hot = b.stream
+                rows = [store.get(int(tid)) for tid in b.ids]
+            stream, cum_t, cov8, *hot = b.stream
+            overrides = cuts = min_run = None
+            if hot:
                 t0 = time.perf_counter()
-                overrides = _bucket_hot_overrides(store, bi, tpls, hot, tbatch_np)
-                t1 = time.perf_counter()
+                overrides = _bucket_hot_overrides(store, bi, tpls, hot[0], rows)
+                seconds_by_part["overrides"] += time.perf_counter() - t0
                 cuts = {r_: template_cuts[int(b.ids[r_])] for r_ in range(b.n_real)
                         if int(b.ids[r_]) in template_cuts}
-                with timed("cns.compact_packed"):
-                    pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, tbatch_np,
-                                                 opts.min_cov, opts.min_size,
-                                                 opts.raw_min_gap, overrides=overrides,
-                                                 cut_at=cuts)
-                seconds_by_part["overrides"] += t1 - t0
-            else:
-                t1 = time.perf_counter()
+            elif opts.full_consensus:
                 # full consensus (-f 1) keeps reads whole: covered-run
                 # threshold drops to 0.85*min_size (cbcns.c:200)
-                min_run = (max(1, int(opts.min_size * 0.85))
-                           if opts.full_consensus else None)
-                with timed("cns.compact_packed"):
-                    pieces = compact_from_packed(b.packed, b.tlens, tbatch_np,
-                                                 opts.min_size, opts.raw_min_gap,
-                                                 max_delta=opts.max_delta, min_run=min_run)
+                min_run = max(1, int(opts.min_size * 0.85))
+            t1 = time.perf_counter()
+            with timed("cns.compact_packed"):
+                pieces = compact_from_stream(stream, cum_t, cov8, b.tlens, rows,
+                                             opts.min_cov, opts.min_size, opts.raw_min_gap,
+                                             overrides=overrides, cut_at=cuts,
+                                             min_run=min_run)
         with timed("cns.emit_records"):
-            records.extend(_emit_records(b, pieces, tbatch_np, opts))
+            records.extend(_emit_records(b, pieces, rows, opts))
         seconds_by_part["compact"] += time.perf_counter() - t1
     return records
 
 
-def _bucket_hot_overrides(store, bi: int, tpls, hot: np.ndarray,
-                          tbatch_np: np.ndarray, pad: int = 60) -> dict:
+def _bucket_hot_overrides(store, bi: int, tpls, hot: np.ndarray, rows, pad: int = 60) -> dict:
     """Link-DP repair of the insertion hotspots of bucket bi (wide-delta
     mode): row -> {template position -> bases it emits instead}.
 
@@ -739,7 +738,7 @@ def _bucket_hot_overrides(store, bi: int, tpls, hot: np.ndarray,
                 logger.warning("hotspot region %d bp at row %d skipped (>100 kb)",
                                hi - lo, row)
                 continue
-            t_local = tbatch_np[row, lo:hi].astype(np.uint8)
+            t_local = rows[row][lo:hi].astype(np.uint8)
             # 1. the read segments spanning the window (a semiglobal trim
             # against the draft absorbs the interpolation drift)
             segs = []
@@ -806,7 +805,9 @@ def _bucket_hot_overrides(store, bi: int, tpls, hot: np.ndarray,
     return overrides
 
 
-def _emit_records(b: _Bucket, pieces, tbatch_np, opts: CnsOptions) -> List[CnsRecord]:
+def _emit_records(b: _Bucket, pieces, rows, opts: CnsOptions) -> List[CnsRecord]:
+    """The records of one bucket's pieces; rows[r] holds row r's template
+    bases (at least its tlens)."""
     records = []
     for r_, (cns_p, raw_p) in enumerate(pieces[:b.n_real]):
         tid = int(b.ids[r_])
@@ -816,18 +817,18 @@ def _emit_records(b: _Bucket, pieces, tbatch_np, opts: CnsOptions) -> List[CnsRe
             # fragments joined by the raw template between them
             if not cns_p:
                 records.append(CnsRecord(tid=tid, left=0, right=n, org_size=n,
-                                         seq=tbatch_np[r_, :n].astype(np.uint8),
+                                         seq=rows[r_][:n].astype(np.uint8),
                                          corrected=False))
                 continue
             parts = []
             prev = 0
             for (s, e, seq) in cns_p:
                 if s > prev:
-                    parts.append(tbatch_np[r_, prev:s].astype(np.uint8))
+                    parts.append(rows[r_][prev:s].astype(np.uint8))
                 parts.append(seq)
                 prev = e
             if prev < n:
-                parts.append(tbatch_np[r_, prev:n].astype(np.uint8))
+                parts.append(rows[r_][prev:n].astype(np.uint8))
             records.append(CnsRecord(tid=tid, left=0, right=n, org_size=n,
                                      seq=np.concatenate(parts), corrected=True))
             continue

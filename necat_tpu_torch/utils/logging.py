@@ -76,11 +76,15 @@ PORT_ONLY = (
     # waits for all work queued before it; the JAX package's matrix-product
     # scatter has fixed shapes and no sync
     "cns.scatter_sync",
-    # the two parts of cns.compact: the raw template rows
-    # (ReadStore.padded_batch) and the per-template decoding of the
-    # consensus (compact_from_packed / compact_from_stream)
+    # the two parts of cns.compact: the template rows (views of the read
+    # store, one a bucket row) and the per-template slicing of the
+    # consensus stream into pieces (compact_from_stream)
     "cns.padded_batch",
     "cns.compact_packed",
+    # counter: the MB that cns.download brings to the host, per bucket its
+    # consensus stream, cum_t and cov8 (and the hot mask on the wide-delta
+    # path); the JAX package downloads its packed int32 per column instead
+    "cns.download_MB",
     # record emission (correct._emit_records), after cns.compact, which the
     # JAX package does not time
     "cns.emit_records",

@@ -40,13 +40,22 @@ sys.path.insert(0, REPO)
 
 
 def _spy(module, calls):
-    fn = module.consensus_packed
+    """Record each consensus call's weights, coverage and packed calls. The
+    port's correct_reads calls consensus_stream: its packed form is
+    computed beside it, from the same arguments."""
+    name = "consensus_packed" if hasattr(module, "consensus_packed") else "consensus_stream"
+    fn = getattr(module, name)
 
     def spy(w, cov, *args):
         out = fn(w, cov, *args)
-        calls.append((np.asarray(w), np.asarray(cov), np.asarray(out)))
+        if name == "consensus_packed":
+            packed = out
+        else:
+            from necat_tpu_torch.consensus.backbone import consensus_packed
+            packed = consensus_packed(w, cov, *args)
+        calls.append((np.asarray(w), np.asarray(cov), np.asarray(packed)))
         return out
-    module.consensus_packed = spy
+    setattr(module, name, spy)
 
 
 def main() -> int:

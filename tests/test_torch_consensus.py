@@ -16,6 +16,7 @@ from necat_tpu.overlap import overlapper as joverlapper
 from necat_tpu.overlap.candidates import Candidates as JaxCandidates
 from necat_tpu_torch.align import banded
 from necat_tpu_torch.consensus import backbone, fused, tags
+from necat_tpu_torch.consensus import correct as tcorrect
 from necat_tpu_torch.consensus.correct import correct_reads
 from necat_tpu_torch.consensus.options import CnsOptions
 from necat_tpu_torch.overlap.candidates import Candidates
@@ -149,3 +150,64 @@ def test_correction_options_match_jax_static_band(jax_static_band):
         assert (a.tid, a.left, a.right, a.corrected) == \
             (b.tid, b.left, b.right, b.corrected)
         np.testing.assert_array_equal(a.seq, b.seq)
+
+
+@pytest.fixture(scope="module")
+def narrow_inputs():
+    """The port's store and role-expanded candidates of
+    test_correction_options_match_jax_static_band's read set."""
+    _, rs = small_store(G=6000, gseed=77, rseed=78, coverage=5)
+    ct = find_all_candidates(rs, rs, SMALL_MAP_OPTIONS, pairwise=True, device="cpu")
+    return rs, Candidates.concat([ct, ct.swap_roles()])
+
+
+def _packed_flow(monkeypatch, rs, cands, co):
+    """correct_reads with each bucket's consensus decoded as the packed flow
+    decodes it: consensus_packed downloaded, the template rows copied by
+    ReadStore.padded_batch, compact_from_packed on the host (min_run 0.85 *
+    min_size under full_consensus), the records emitted from the copy."""
+    packed = []
+
+    def stream(w, cov, min_cov, ins_frac, ins_offset, _fn=backbone.consensus_stream):
+        packed.append(backbone.consensus_packed(w, cov, min_cov, ins_frac,
+                                                ins_offset).cpu().numpy())
+        return _fn(w, cov, min_cov, ins_frac, ins_offset)
+
+    def compact(store, buckets, tpls, opts, template_cuts):
+        recs = []
+        min_run = max(1, int(opts.min_size * 0.85)) if opts.full_consensus else None
+        for b in buckets:
+            tbatch, _ = store.padded_batch(b.ids, pad_to=b.Lt, multiple=1)
+            pieces = backbone.compact_from_packed(packed.pop(0), b.tlens, tbatch,
+                                                  opts.min_size, opts.raw_min_gap,
+                                                  max_delta=opts.max_delta, min_run=min_run)
+            recs.extend(tcorrect._emit_records(b, pieces, tbatch, opts))
+        return recs
+
+    with monkeypatch.context() as mp:
+        mp.setattr(tcorrect, "consensus_stream", stream)
+        mp.setattr(tcorrect, "_compact_supergroup", compact)
+        recs = correct_reads(rs, cands, co, device="cpu")
+    assert not packed
+    return recs
+
+
+@pytest.mark.parametrize("full_consensus", [False, True], ids=["pieces", "full_consensus"])
+def test_narrow_stream_compaction_equals_packed_flow(monkeypatch, narrow_inputs,
+                                                     full_consensus):
+    """On the narrow-delta path the stream compaction gives the records of
+    the packed flow (its oracle) record for record, whatever
+    templates_per_batch buckets the templates by."""
+    rs, cands = narrow_inputs
+    co = CnsOptions(templates_per_batch=4, pairs_per_chunk=32, full_consensus=full_consensus)
+    want = _packed_flow(monkeypatch, rs, cands, co)
+    assert sum(r.corrected for r in want) >= 3
+    for tb in (4, 3):
+        got = correct_reads(rs, cands, dataclasses.replace(co, templates_per_batch=tb),
+                            device="cpu")
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert (a.tid, a.left, a.right, a.org_size, a.corrected) == \
+                (b.tid, b.left, b.right, b.org_size, b.corrected)
+            assert a.seq.dtype == b.seq.dtype == np.uint8
+            np.testing.assert_array_equal(a.seq, b.seq)

@@ -122,35 +122,107 @@ def _same_pieces(a, b):
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("seed,cov_lo", [(11, 0), (9, 0), (5, 3)])
-def test_compact_consensus_is_the_oracle_of_packed_and_stream(seed, cov_lo):
+# min_run as -f 1 runs it: 0.85 * min_size (consensus/correct.py)
+FULL_RUN = int(0.85 * 20)
+
+
+def _run_shaped_case(rng, TB, L, D):
+    """Tag tensors whose covered runs are 10-30 columns long, many of them
+    between FULL_RUN and min_size (20), with insertions strong enough that
+    such a run still emits min_size bases."""
+    w = rng.random((TB, D, 5, L)).astype(np.float32) * 3
+    w[:, 1, 0, ::2] = 9.0               # an insertion every other column
+    cov = np.zeros((TB, L), np.int32)
+    for b in range(TB):
+        t = int(rng.integers(0, 5))
+        while t < L:
+            n = int(rng.integers(10, 31))
+            cov[b, t:t + n] = rng.integers(4, 12, len(cov[b, t:t + n]))
+            t += n + int(rng.integers(1, 6))
+    return w, cov
+
+
+@pytest.mark.parametrize("seed,cov_lo,min_run", [
+    pytest.param(11, 0, None, id="11-0"),
+    pytest.param(9, 0, None, id="9-0"),
+    pytest.param(5, 3, None, id="5-3"),
+    pytest.param(11, 0, FULL_RUN, id="11-0-full_consensus"),
+    pytest.param(5, 3, FULL_RUN, id="5-3-full_consensus"),
+    pytest.param(7, "runs", None, id="runs-min_size"),
+    pytest.param(7, "runs", FULL_RUN, id="runs-full_consensus"),
+])
+def test_compact_consensus_is_the_oracle_of_packed_and_stream(seed, cov_lo, min_run):
     """The port's compact_from_packed and compact_from_stream give its
     compact_consensus' pieces on random tag tensors (the cases of
     tests/test_consensus.py:232-262, whose coverage from 0 leaves raw pieces
     only, and one with coverage from 3, which gives corrected pieces too),
-    and compact_consensus gives the JAX package's on the same arrays."""
+    and compact_consensus gives the JAX package's on the same arrays. With a
+    min_run below min_size (-f 1's), and on covered runs shaped about both
+    thresholds ("runs"), compact_from_stream equals compact_from_packed
+    piece for piece."""
     rng = np.random.default_rng(seed)
     TB, L, D = 4, 256, 8
-    w = rng.random((TB, D, 5, L)).astype(np.float32) * 3
-    cov = rng.integers(cov_lo, 12, (TB, L)).astype(np.int32)
+    if cov_lo == "runs":
+        w, cov = _run_shaped_case(rng, TB, L, D)
+    else:
+        w = rng.random((TB, D, 5, L)).astype(np.float32) * 3
+        cov = rng.integers(cov_lo, 12, (TB, L)).astype(np.int32)
     tlens = np.array([256, 200, 128, 0], np.int32)
     templates = rng.integers(0, 4, (TB, L)).astype(np.uint8)
     wt, ct = torch.from_numpy(w), torch.from_numpy(cov)
+    packed = backbone.consensus_packed(wt, ct, 4, 0.3, 1.0).numpy()
+    stream, cum_t, _, cov8 = (x.numpy() for x in backbone.consensus_stream(wt, ct, 4, 0.3, 1.0))
+    from_stream = backbone.compact_from_stream(stream, cum_t, cov8, tlens, templates, 4, 20, 50,
+                                               min_run=min_run)
+    _same_pieces(from_stream, backbone.compact_from_packed(packed, tlens, templates, 20, 50,
+                                                           max_delta=D, min_run=min_run))
+    if cov_lo == "runs":
+        # the two thresholds differ on this coverage: -f 1 keeps more pieces
+        n_at = [sum(len(c) for c, _ in backbone.compact_from_stream(
+            stream, cum_t, cov8, tlens, templates, 4, 20, 50, min_run=m)) for m in (None,
+                                                                                   FULL_RUN)]
+        assert 0 < n_at[0] < n_at[1]
+    if min_run is not None:
+        return
     emit, base = backbone.call_consensus(wt, ct, 4, 0.3, 1.0)
     dense = backbone.compact_consensus(emit.numpy(), base.numpy(), cov, tlens, templates,
                                        4, 20, 50)
-    assert (sum(len(c) for c, _ in dense) > 0) == (cov_lo > 0)
+    if cov_lo != "runs":
+        assert (sum(len(c) for c, _ in dense) > 0) == (cov_lo > 0)
     jemit, jbase = jbackbone.call_consensus(jnp.asarray(w), jnp.asarray(cov), 4, 0.3, 1.0)
     np.testing.assert_array_equal(emit.numpy(), np.asarray(jemit))
     np.testing.assert_array_equal(base.numpy(), np.asarray(jbase))
     _same_pieces(dense, jbackbone.compact_consensus(np.asarray(jemit), np.asarray(jbase),
                                                     cov, tlens, templates, 4, 20, 50))
-    packed = backbone.consensus_packed(wt, ct, 4, 0.3, 1.0).numpy()
-    _same_pieces(backbone.compact_from_packed(packed, tlens, templates, 20, 50, max_delta=D),
-                 dense)
-    stream, cum_t, _, cov8 = backbone.consensus_stream(wt, ct, 4, 0.3, 1.0)
-    _same_pieces(backbone.compact_from_stream(stream.numpy(), cum_t.numpy(), cov8.numpy(),
-                                              tlens, templates, 4, 20, 50), dense)
+    _same_pieces(from_stream, dense)
+
+
+@pytest.mark.parametrize("min_run", [None, FULL_RUN], ids=["min_size", "full_consensus"])
+def test_compact_from_stream_reads_template_rows_in_place(min_run):
+    """Templates given as one view of the read store a row (padding rows
+    included, their tlens 0) give the pieces of the dense padded_batch copy,
+    raw passthrough included; the raw pieces are copies, not views."""
+    rng = np.random.default_rng(13)
+    TB, L, D = 4, 256, 8
+    w = rng.random((TB, D, 5, L)).astype(np.float32) * 3
+    cov = rng.integers(3, 12, (TB, L)).astype(np.int32)
+    cov[:, 100:160] = 0                 # a gap the raw passthrough fills
+    store = readstore.ReadStore.from_seqs(
+        [rng.integers(0, 4, int(n)).astype(np.uint8) for n in (256, 200, 128)])
+    ids = np.array([0, 1, 2, 2])
+    tlens = store.lengths[ids].copy()
+    tlens[3] = 0
+    dense, _ = store.padded_batch(ids, pad_to=L, multiple=1)
+    rows = [store.get(int(i)) for i in ids]
+    wt, ct = torch.from_numpy(w), torch.from_numpy(cov)
+    stream, cum_t, _, cov8 = (x.numpy() for x in backbone.consensus_stream(wt, ct, 4, 0.3, 1.0))
+    args = (stream, cum_t, cov8, tlens)
+    got = backbone.compact_from_stream(*args, rows, 4, 20, 50, min_run=min_run)
+    _same_pieces(got, backbone.compact_from_stream(*args, dense, 4, 20, 50, min_run=min_run))
+    raw = [p for _, r in got for p in r]
+    assert raw and sum(len(c) for c, _ in got) > 0
+    for _, _, seq in raw:
+        assert not np.shares_memory(seq, store.bases)
 
 
 def test_kmer_index_statistics_match_jax():

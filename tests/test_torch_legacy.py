@@ -32,7 +32,7 @@ LANES = ("ext.lanes", "ext.real_lanes", "ext.cell_Mlanes")
 # the port-only names (logging.PORT_ONLY) of the legacy flow: it has no
 # fused tag scatter
 LEGACY_PORT_ONLY = {"cns.padded_batch", "cns.compact_packed", "cns.emit_records",
-                    "ext.live_Mcols"}
+                    "ext.live_Mcols", "cns.download_MB"}
 
 
 def same_records(recs_a, recs_b):

@@ -38,7 +38,8 @@ LANES = ("ext.lanes", "ext.real_lanes", "ext.cell_Mlanes")
 PER_SHARD = ("cand.limits", "cand.dispatch", "cand.exec", "cand.stats_sync")
 # the port-only names (logging.PORT_ONLY) of the fused main path
 FUSED_PORT_ONLY = {"cns.tag_scatter", "cns.scatter_sync", "cns.padded_batch",
-                   "cns.compact_packed", "cns.emit_records", "ext.live_Mcols"}
+                   "cns.compact_packed", "cns.emit_records", "ext.live_Mcols",
+                   "cns.download_MB"}
 
 
 def _jax_main(jrs):
@@ -59,7 +60,8 @@ def _port_main(rs, device="cpu"):
 def _watch(mp, seen: dict) -> None:
     """Record, for the run under way, the scatter_chunk calls of the fused
     path, the chunks ExtendEngine.plan makes (with the query lengths it was
-    given) and the buckets each supergroup compacts."""
+    given), the buckets each supergroup compacts and the bytes of their
+    downloaded consensus."""
     def scatter_chunk(*a, _fn=tfused.scatter_chunk, **kw):
         seen["scatter_chunk"] += 1
         return _fn(*a, **kw)
@@ -71,6 +73,7 @@ def _watch(mp, seen: dict) -> None:
 
     def compact(store, buckets, *a, _fn=tcorrect._compact_supergroup, **kw):
         seen["buckets"] += len(buckets)
+        seen["download_B"] += sum(x.nbytes for b in buckets for x in b.stream)
         return _fn(store, buckets, *a, **kw)
 
     mp.setattr(tfused, "scatter_chunk", scatter_chunk)
@@ -102,7 +105,8 @@ def main_runs(tmp_path_factory):
                            str(tmp_path_factory.mktemp("trace") / "spans.json"))
             if mode in ("on", "sync"):
                 out["jax"][mode] = _jax_main(jrs)
-            seen = out["seen"][mode] = {"scatter_chunk": 0, "plans": [], "buckets": 0}
+            seen = out["seen"][mode] = {"scatter_chunk": 0, "plans": [], "buckets": 0,
+                                        "download_B": 0}
             with pytest.MonkeyPatch.context() as watch:
                 _watch(watch, seen)
                 out["port"][mode] = _port_main(rs)
@@ -179,6 +183,18 @@ def test_compaction_parts_per_bucket(main_runs, mode):
         assert rep[k][1] == n, k
     assert rep["cns.padded_batch"][0] + rep["cns.compact_packed"][0] <= \
         rep["cns.compact"][0] + 0.011
+
+
+@pytest.mark.parametrize("mode", ["on", "sync", "trace"])
+def test_download_megabytes_per_bucket(main_runs, mode):
+    """cns.download_MB, a port-only counter reported with 0 calls, is the MB
+    of every bucket's downloaded consensus (stream, cum_t, cov8)."""
+    rep, seen = main_runs["port"][mode][2], main_runs["seen"][mode]
+    assert "cns.download_MB" in tlogging.PORT_ONLY
+    assert seen["download_B"] > 0
+    assert rep["cns.download_MB"] == (pytest.approx(round(seen["download_B"] / 1e6, 2),
+                                                    abs=0.011), 0)
+    assert rep["cns.download_MB"][0] > 0
 
 
 @pytest.mark.parametrize("mode", ["on", "sync", "trace"])
