@@ -444,10 +444,16 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
                     cutoffs=cutoffs, tensors=tensors,
                     allow_fullcov=round_id > 0)
 
-        def run(idx, base=base, **kw):
-            """dispatch_wave over the pairs idx of this wave."""
+        def run(idx, base=base, replay=False, **kw):
+            """dispatch_wave over the pairs idx of this wave (the rescue's
+            dispatches: counted in cns.replay_lanes for round 0's second
+            dispatch, else in cns.rung_lanes above W0)."""
             d = {k: (v[idx] if isinstance(v, np.ndarray) else v)
                  for k, v in base.items()}
+            if replay:
+                count("cns.replay_lanes", len(idx))
+            elif kw["W"] > W0:
+                count("cns.rung_lanes", len(idx))
             return fused.dispatch_wave(engines, **d, **kw)
 
         npairs = len(p_ci)
@@ -461,9 +467,11 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
             with timed("cns.extend_pairs_total"):
                 chunks = fused.dispatch_wave(engines, **base, W=W0, slots=slots,
                                              ibufs=ibufs)
-                run0 = functools.partial(run, ibufs=ibufs)
-                lane_w = (_ident_ladder(run0, chunks, npairs, cands, p_ci, slots,
-                                        opts) if rescue else None)
+                lane_w = None
+                if rescue:
+                    with timed("cns.ident_ladder"):
+                        lane_w = _ident_ladder(functools.partial(run, ibufs=ibufs), chunks,
+                                               npairs, cands, p_ci, slots, opts)
             for bi, ib in ibufs.items():
                 cutoffs[bi] = fused.cutoff_from_idents(ib, n_ident=opts.n_ident)
             with timed("cns.extend_pairs_total"):
@@ -472,9 +480,11 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
                                          opts.mapping_ratio)
                     fused.collect_fused(chunks, stats)
                 else:        # the band of each lane is decided: scatter at it
-                    for Wx in np.unique(lane_w):
-                        idx = np.flatnonzero(lane_w == Wx)
-                        fused.collect_fused(run(idx, W=int(Wx)), stats, sel=idx)
+                    with timed("cns.round0_replay"):
+                        for Wx in np.unique(lane_w):
+                            idx = np.flatnonzero(lane_w == Wx)
+                            fused.collect_fused(run(idx, W=int(Wx), replay=True), stats,
+                                                sel=idx)
         else:
             with timed("cns.extend_pairs_total"):
                 chunks = fused.dispatch_wave(
@@ -482,7 +492,8 @@ def _run_waves(engines, cands, buckets, tpls, opts: CnsOptions, st: _SelState,
                     qend_cand=cands.qend[p_ci].astype(np.int64))
                 fused.collect_fused(chunks, stats)
                 if rescue:
-                    _defer_ladder(run, stats, cands, p_ci, opts)
+                    with timed("cns.defer_ladder"):
+                        _defer_ladder(run, stats, cands, p_ci, opts)
         with timed("cns.accept"):
             acc = np.flatnonzero(stats["ok"])
             _apply_cov(st, p_tpl[acc], stats["toff"][acc], stats["tend"][acc])

@@ -28,6 +28,18 @@ def chain_pairs(qoff, soff, seed_mask, kmer_size: int, max_dist: int = 5000,
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
+def floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) of int32 x >= 1 by a bit scan: integer ops only, so
+    exact on every device (the card's float64 log2 of a power of two may
+    fall below the integer, which floor then takes one too low)."""
+    r = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        m = x >= (1 << s)
+        r = r + m.to(x.dtype) * s
+        x = torch.where(m, x >> s, x)
+    return r
+
+
 def _chain_slice(q, s, seed_mask, kmer_size, max_dist, bw):
     P, S = q.shape
     dev = q.device
@@ -41,8 +53,7 @@ def _chain_slice(q, s, seed_mask, kmer_size, max_dist, bw):
     ok = (dq > 0) & (dr > 0) & (dq <= max_dist) & (dr <= max_dist) & (dd <= bw)
     ok &= seed_mask[:, :, None] & seed_mask[:, None, :]
     ok &= torch.ones((S, S), dtype=torch.bool, device=dev).tril(-1)[None]
-    # floor(log2(dd)), in float64: exact for every int32 dd
-    log_dd = torch.where(dd > 0, torch.log2(dd.clamp(min=1).double()).floor(), 0).to(i32)
+    log_dd = floor_log2(dd.clamp(min=1))
     sc = (torch.minimum(torch.minimum(dq, dr), torch.tensor(kmer_size, dtype=i32, device=dev))
           - (dd.to(torch.float32) * (0.01 * kmer_size)).to(i32) - (log_dd >> 1))
     M = torch.where(ok, sc, NEG)

@@ -93,6 +93,18 @@ PORT_ONLY = (
     # ext.cell_Mlanes (lanes x tier) it is the share of the planned cells
     # that hold work
     "ext.live_Mcols",
+    # the long-indel rescue of the fused path (correct._run_waves with
+    # rescue_long_indels), inside cns.extend_pairs_total: round 0's ladder
+    # (_ident_ladder), round 0's second dispatch of every lane at its
+    # decided band, and the later rounds' ladder of deferred lanes
+    # (_defer_ladder); the JAX package runs the same steps untimed
+    "cns.ident_ladder",
+    "cns.round0_replay",
+    "cns.defer_ladder",
+    # counters of the rescue: the real lanes the ladders dispatch at a band
+    # above band_width, and the lanes of round 0's second dispatch
+    "cns.rung_lanes",
+    "cns.replay_lanes",
 )
 
 
