@@ -22,9 +22,15 @@ Phases, each failing the run on error:
   5. main    the bench read set (gen_benchmark_reads(200_000, 20, seed=7):
              339 reads, 4.02 Mb) through find_all_candidates -> swap_roles ->
              correct_reads with default options; K1 and K3 must launch and
-             K2 must not (K1 computes ENC itself), and the corrected count
-             and identity must stay within the margins of necat_tpu's own
-             run of this set on the CPU;
+             K2 must not (K1 computes ENC itself), the tag scatter's kernel
+             twice a chunk (as in phases 8, 9 and 19), and the corrected
+             count and identity must stay within the margins of
+             necat_tpu's own run of this set on the CPU. Then the tag
+             scatter's kernel (csrc/tag_scatter.cu) against its plain
+             version on the card on main's largest chunk (D 8, one insb
+             word), and after phase 9 on polish's (D 22, three words):
+             bitwise equal weights and coverage, times beside the plain
+             version's and the byte bound (scatter_bytes);
   6. rungs   K1, K2 and K3 at every width the rescue ladder reaches from
              W0=128: 512, 1024, 2048 and 4096 (K1 runs a block per pair from
              512, K3 from 1024), L=8192, PB=pairs_per_chunk(8192, W), against their
@@ -186,6 +192,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -222,6 +229,7 @@ JAX_CPU_MAIN_REFERENCE = {
         "372999c2bb3479406964c523b2469eb71d75b677f248c9dc1b1602ed50ea8c30",
     "tie_flips": {"199": [15, 16329, 16276]}}
 KERNEL_SOURCE = "necat_tpu_torch/csrc/banded_kernels.cu"
+SCATTER_SOURCE = "necat_tpu_torch/csrc/tag_scatter.cu"     # tags.scatter_chunk on the card
 # necat_tpu's `cli assemble` of the bench read set on the CPU with the config
 # of phase 8 (the adaptive band; scripts/jax_pipeline_reference.py):
 # identities as contig_identity measures them. Its polish LOWERS identity on
@@ -317,7 +325,8 @@ REPLACES = {"diag_sub_matrix": "necat_tpu/align/pallas_banded.py:146",
             "banded_forward": "necat_tpu/align/pallas_banded.py:65",
             "banded_backtrack_cols": "necat_tpu/align/pallas_banded.py:325",
             "banded_forward_adaptive": "necat_tpu/align/banded.py:48",
-            "adaptive_backtrack_cols": "necat_tpu/align/banded.py:112+:181"}
+            "adaptive_backtrack_cols": "necat_tpu/align/banded.py:112+:181",
+            "tag_scatter": "necat_tpu/consensus/tags.py:408+:252"}
 ON_PATH = ("banded_forward", "banded_backtrack_cols")   # K2's work is inside K1
 # the adaptive band's kernels (NECAT_TPU_NO_PALLAS), and the paths (phases
 # 20, 21 and 22c) where they may launch
@@ -544,11 +553,147 @@ def _kernel_row(name, W, words, PB, L, err, ms, plain_ms, bound_ms_by,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def _reset_launches() -> None:
+    """Set the launch counts of banded_kernels and of the tag scatter to 0."""
+    from necat_tpu_torch.align import banded_kernels as bk
+    from necat_tpu_torch.consensus import tags
+    bk.reset_launches()
+    tags.reset_launches()
+
+
 def _launches(bk) -> dict:
-    """This path's launch counts: by (wrapper, W), and K3's by (W, words)."""
+    """This path's launch counts: by (wrapper, W), K3's and K3a's by (W,
+    words), the tag scatter's by (D, words) and its scatter_chunk calls by
+    device type."""
+    from necat_tpu_torch.consensus import tags
     return {"by_width": collections.Counter(bk.launches_by_width),
             "k3_by_words": collections.Counter(bk.k3_launches_by_words),
-            "k3a_by_words": collections.Counter(bk.k3a_launches_by_words)}
+            "k3a_by_words": collections.Counter(bk.k3a_launches_by_words),
+            "scatter_by_shape": collections.Counter(tags.launches_by_shape),
+            "scatter_chunks": collections.Counter(tags.chunks_by_device)}
+
+
+def _scatter_on_card(path: str, counts: dict) -> None:
+    """Every scatter_chunk call of the path ran on the card and launched the
+    kernel twice (one launch a pass); raises otherwise."""
+    chunks = counts["scatter_chunks"]
+    launched = sum(counts["scatter_by_shape"].values())
+    if not chunks["cuda"] or set(chunks) != {"cuda"} or launched != 2 * chunks["cuda"]:
+        raise AssertionError(f"{path}: the tag scatter must launch twice a chunk on the card: "
+                             f"chunks {dict(chunks)}, launches "
+                             f"{dict(counts['scatter_by_shape'])}")
+
+
+class HeldChunk:
+    """While entered, wraps fused.scatter_chunk (the name the fused flow
+    calls) to keep a copy of the arguments of the path's call with the most
+    pairs, then the widest columns, and the shape of its weights, so that
+    check_scatter can hold the kernel to its plain version on a chunk the
+    path made."""
+
+    def __init__(self):
+        self.size, self.shape, self.args = (0, 0), None, None
+
+    def __enter__(self):
+        from necat_tpu_torch.consensus import fused
+        self.fused, self.real = fused, fused.scatter_chunk
+
+        def held(weights, coverage, *a):
+            size = tuple(a[5].shape)                 # right_cols [P, MC]
+            if weights.is_cuda and size > self.size:
+                self.size, self.shape = size, tuple(weights.shape)
+                self.args = [tuple(x.clone() for x in v) if isinstance(v, tuple) else v.clone()
+                             for v in a]
+            return self.real(weights, coverage, *a)
+
+        fused.scatter_chunk = held
+        return self
+
+    def __exit__(self, *exc):
+        self.fused.scatter_chunk = self.real
+
+
+def scatter_bytes(shape, args) -> tuple:
+    """(bytes, weight tags) of one scatter_chunk call, counted with
+    _scatter_pass's masks: the cols words up to each live pair's clip jc,
+    the insb words of the insertion runs that land, the leading bases that
+    land, the per-pair words (at, row, weight and tsize once, lead and jc a
+    pass), and 8 bytes per weight tag and 4 per coverage tag added (one
+    atomic each, read and written once at least)."""
+    from necat_tpu_torch.align.banded_kernels import N_INSB, OP_PAD
+    lc, li, ll, _, lj, rc, ri, rl, _, rj, at, row, _, ts = args
+    TB, D, Lt = shape[0] - 1, shape[1], shape[3]
+    P, MC = rc.shape
+    j = torch.arange(1, MC + 1, device=rc.device)[None, :]
+    at_, tsz, tl = at.long()[:, None], ts.long()[:, None], at.long() - 1
+    total, tags_ = 16 * P, 0
+    for cols, insb, lead, jc, rev in ((rc, ri, rl, rj, False), (lc, li, ll, lj, True)):
+        nd = min(D - 1, N_INSB * len(insb))
+        jc_ = jc.long()[:, None]
+        live = (row >= 0) & (row < TB) & (jc > 0)
+        t = at_ - j if rev else at_ + j - 1
+        ti = t - 1 if rev else t
+        notpad = (cols & 3) != OP_PAD
+        ok0 = live[:, None] & notpad & (j <= jc_) & (t >= 0) & (t < tsz) & (t < Lt)
+        k = torch.where(notpad, cols >> 5, 0).clamp(max=nd)
+        oki = live[:, None] & (k > 0) & (j < jc_) & (ti >= 0) & (ti < tsz) & (ti < Lt)
+        okl = live & (tl >= 0) & (tl < ts) & (tl < Lt)
+        n0 = int(ok0.sum())
+        n_ins = int(torch.where(oki, k, 0).sum())
+        n_lead = int(torch.where(okl, lead.clamp(min=0, max=nd), 0).sum())
+        read_cols = int(torch.where(live, jc.clamp(max=MC), 0).sum())
+        words = int(torch.where(oki, (k + N_INSB - 1) // N_INSB, 0).sum())
+        tags_ += n0 + n_ins + n_lead
+        total += (4 * read_cols + 4 * words + 8 * P + n_lead + 8 * (n0 + n_ins + n_lead)
+                  + 4 * n0)
+    return total, tags_
+
+
+def check_scatter(held: HeldChunk, inputs: str) -> dict:
+    """The tag scatter's kernel against its plain version (tags._scatter_pass
+    on the card: the listing formulation with its eight syncs a chunk) on the
+    chunk `held` from the path `inputs`, both scattering into zeroed
+    weights and coverage: bitwise equal, each timed, and the byte bound
+    (scatter_bytes over PEAK_BYTES_S). Keyed ("tag_scatter", D, words)."""
+    from necat_tpu_torch.consensus import tags
+    a = held.args
+    lc, li, ll, lb, lj, rc, ri, rl, rb, rj, at, row, w, ts = a
+    TBp1, D, _, Lt = held.shape
+    P, MC = rc.shape
+
+    def zeros():
+        return (torch.zeros(held.shape, dtype=torch.float64, device=rc.device),
+                torch.zeros((TBp1, Lt), dtype=torch.int32, device=rc.device))
+
+    def plain(wt, ct):
+        for c, i, ld, b, j, rev in ((rc, ri, rl, rb, rj, False), (lc, li, ll, lb, lj, True)):
+            tags._scatter_pass(wt, ct, c, i, ld, b, j, at, row, w, ts, reversed_part=rev)
+
+    wk, ck = zeros()
+    tags.scatter_chunk(wk, ck, *a)
+    wp, cp = zeros()
+    plain(wp, cp)
+    torch.cuda.synchronize()
+    same = (torch.equal(wk.view(torch.int64), wp.view(torch.int64))
+            and torch.equal(ck, cp))
+    err = max(float((wk - wp).abs().max()), float((ck - cp).abs().max()))
+    ms = _time_ms(lambda: tags.scatter_chunk(wk, ck, *a), 20)
+    plain_ms = _time_ms(lambda: plain(wp, cp), 3)
+    nbytes, n_tags = scatter_bytes(held.shape, a)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"kernel tag_scatter: PB={P} MC={MC} Lt={Lt} D={D} words={len(ri)} inputs={inputs} "
+          f"weight_tags={n_tags} bitwise_equal={same} max_abs_err={err} kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms (bytes, "
+          f"{100 * bound_ms / ms:.1f} % of it)", flush=True)
+    if not same:
+        raise AssertionError(f"tag_scatter on {inputs}'s chunk: kernel and plain version "
+                             f"disagree ({err})")
+    del wk, ck, wp, cp
+    return {("tag_scatter", D, len(ri)): dict(
+        name="tag_scatter", D=D, words=len(ri), PB=P, MC=MC, Lt=Lt, inputs=inputs,
+        weight_tags=n_tags, cuda_kernel="tag_scatter_kernel", route="cuda",
+        source=SCATTER_SOURCE, replaces=REPLACES["tag_scatter"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None)}
 
 
 def _same_records(ra, rb) -> None:
@@ -682,9 +827,10 @@ def accuracy_sample(recs, lengths, genome, st, sd, ln, n_sample=24):
     return round(float(np.mean(idents)), 2) if idents else None
 
 
-def main_path(dev, launch_counts: dict):
+def main_path(dev, launch_counts: dict, held: HeldChunk | None = None):
     """Returns main's summary and (store, candidates, role-expanded
-    candidates, records) for the phases that rerun its inputs."""
+    candidates, records) for the phases that rerun its inputs; `held`, if
+    given, keeps a chunk of the correction's tag scatter."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus.correct import correct_reads
     from necat_tpu_torch.consensus.options import CnsOptions
@@ -697,20 +843,23 @@ def main_path(dev, launch_counts: dict):
                                                       coverage=20, seed=7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bk.reset_launches()
+    _reset_launches()
     overlapper.index_build_s.clear()
     t0 = time.perf_counter()
     cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
     call = Candidates.concat([cands, cands.swap_roles()])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    recs = correct_reads(store, call, CnsOptions(), device=dev)
+    with held or contextlib.nullcontext():
+        recs = correct_reads(store, call, CnsOptions(), device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launch_counts["main"] = _launches(bk)
+    _scatter_on_card("main", launch_counts["main"])
     launches = {name: sum(n for (k, _), n in launch_counts["main"]["by_width"].items()
                           if k == name)
-                for name in REPLACES}
+                for name in REPLACES if name != "tag_scatter"}
+    launches["tag_scatter"] = sum(launch_counts["main"]["scatter_by_shape"].values())
     ncorr = len({r.tid for r in recs if r.corrected})
     ident = accuracy_sample(recs, store.lengths, genome, st, sd, ln)
     print("main " + json.dumps({
@@ -777,7 +926,7 @@ def check_rescue(dev, launch_counts: dict) -> None:
     rs, cands = planted_pairs()
     res = {}
     for d in ("cpu", dev):
-        bk.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         m4 = extend_candidates(cands, rs, rs, device=d)
         recs = correct_reads(rs, Candidates.concat([cands, cands.swap_roles()]),
@@ -841,7 +990,7 @@ def check_correct(launch_counts: dict, main_res: dict):
     from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.pipeline import cli
     cfg_path, genome, (st, sd, ln) = bench_project()
-    bk.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(["correct", cfg_path, "--device", "cuda"])
@@ -853,6 +1002,7 @@ def check_correct(launch_counts: dict, main_res: dict):
     ran = {k for (k, _), n in launch_counts["correct"]["by_width"].items() if n}
     if ran != set(ON_PATH):
         raise AssertionError(f"correct: K1 and K3 must launch and K2 not: {ran}")
+    _scatter_on_card("correct", launch_counts["correct"])
     cns_dir = os.path.join(WORK, "project", "1-consensus")
     final = ReadStore.from_fasta(os.path.join(cns_dir, "cns_final.fasta.gz"))
     with open(os.path.join(cns_dir, "correct.done.json")) as f:
@@ -909,9 +1059,10 @@ def best_substring_ed(hay: np.ndarray, needle: np.ndarray) -> int:
     return best
 
 
-def check_polish(dev, launch_counts: dict) -> None:
+def check_polish(dev, launch_counts: dict, held: HeldChunk | None = None) -> None:
     """polish_contigs of the collapsed repeat on "cpu" and on the card:
-    identical polished contigs; the hotspot repair returned an override."""
+    identical polished contigs; the hotspot repair returned an override.
+    `held`, if given, keeps a chunk of the card run's tag scatter."""
     from necat_tpu_torch.align import banded_kernels as bk
     from necat_tpu_torch.consensus import correct
     from necat_tpu_torch.io.readstore import ReadStore
@@ -924,17 +1075,19 @@ def check_polish(dev, launch_counts: dict) -> None:
         overrides = []
         correct._bucket_hot_overrides = lambda *a, **k: overrides.append(
             repair(*a, **k)) or overrides[-1]
-        bk.reset_launches()
+        _reset_launches()
         correct.seconds_by_part.clear()
         t0 = time.perf_counter()
         try:
-            pol = polish.polish_contigs(ReadStore.from_seqs([draft], ["ctg0"]),
-                                        ReadStore.from_seqs(reads), device=d, opts=opts)
+            with held or contextlib.nullcontext():
+                pol = polish.polish_contigs(ReadStore.from_seqs([draft], ["ctg0"]),
+                                            ReadStore.from_seqs(reads), device=d, opts=opts)
         finally:
             correct._bucket_hot_overrides = repair
         if d != "cpu":
             torch.cuda.synchronize()
             launch_counts["polish"] = _launches(bk)
+            _scatter_on_card("polish", launch_counts["polish"])
         wall = time.perf_counter() - t0
         seq = pol.get(0)
         res[str(d)] = seq
@@ -1095,7 +1248,7 @@ def _run_assemble(launch_counts: dict, path: str, cfg_path: str, genome) -> dict
     from necat_tpu_torch.io.readstore import ReadStore
     from necat_tpu_torch.pipeline import cli
     prj = os.path.join(WORK, "project")
-    bk.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1207,7 +1360,7 @@ def check_bridge(dev, launch_counts: dict) -> None:
     overlapper.pairs_by_band.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bk.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     out = bridge.bridge_contigs(ctg, store, device=dev)
     torch.cuda.synchronize()
@@ -1247,7 +1400,7 @@ def check_bridge_cli(launch_counts: dict, cfg_path: str) -> None:
     prj = os.path.join(WORK, "project")
     polished = os.path.join(prj, "polished_contigs.fasta")
     assembled = ReadStore.from_fasta(polished)
-    bk.reset_launches()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(["bridge", cfg_path, "--device", "cuda"])
@@ -1386,7 +1539,7 @@ def check_small_memory(dev, launch_counts: dict, main_inputs, smi: str) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             if mode:
-                bk.reset_launches()
+                _reset_launches()
             t0 = time.perf_counter()
             recs = correct_mod.correct_reads(store, call, CnsOptions(small_memory=mode),
                                              device=dev)
@@ -1426,7 +1579,7 @@ def check_volumes(dev, launch_counts: dict, main_inputs, cfg_path: str, smi: str
     from necat_tpu_torch.pipeline import cli
     store, cands, _, _ = main_inputs
     vols = store.volumes(VOL_SIZE)
-    bk.reset_launches()
+    _reset_launches()
     overlapper.index_build_s.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1583,7 +1736,7 @@ def check_index(dev, launch_counts: dict, main_inputs, smi: str) -> None:
     from necat_tpu_torch.overlap.options import MapOptions
     from necat_tpu_torch.utils import shapes
     store, cands, _, _ = main_inputs
-    bk.reset_launches()
+    _reset_launches()
     res = {}
     vol = None
     for name in ("bench", "ecoli"):
@@ -1671,7 +1824,7 @@ def check_devices(dev, launch_counts: dict, main_inputs, cfg_path: str, smi: str
     slice_rs = slice_store()
     mo = MapOptions(**SLICE_MAP)
     m4_one = overlap_all_vs_all(slice_rs, mo, device=dev)
-    bk.reset_launches()
+    _reset_launches()
     got = timed("candidates_s",
                 lambda: find_all_candidates(store, store, MapOptions(), True, device=devs))
     recs = timed("correct_s", lambda: correct_reads(store, call, pinned, device=devs))
@@ -1728,7 +1881,7 @@ def check_timing(dev, launch_counts: dict, main_inputs, smi: str) -> None:
                 os.environ["NECAT_TPU_SYNC_DISPATCH"] = "1"
             torch.cuda.synchronize()
             tlog.reset_timers()
-            bk.reset_launches()
+            _reset_launches()
             t0 = time.perf_counter()
             got = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
             recs = correct_reads(store, Candidates.concat([got, got.swap_roles()]),
@@ -1755,6 +1908,14 @@ def check_timing(dev, launch_counts: dict, main_inputs, smi: str) -> None:
                            if k == "diag_sub_matrix")):
                 raise AssertionError(f"timing ({mode}): K1 and K3 must launch at 128 and K2 "
                                      f"not: {_by_width(counts)}")
+            _scatter_on_card(f"timing ({mode})", counts)
+            # the kernel lists nothing, so the plain version's sync scope is never entered
+            if ("cns.scatter_sync" in report or report.get("cns.scatter_kernel_chunks")
+                    != (report["cns.tag_scatter"][1], 0)):
+                raise AssertionError(f"timing ({mode}): cns.scatter_sync "
+                                     f"{report.get('cns.scatter_sync')}, kernel chunks "
+                                     f"{report.get('cns.scatter_kernel_chunks')} against "
+                                     f"{report['cns.tag_scatter'][1]} tag_scatter calls")
             top = sum(report[k][0] for k in TOP_LEVEL_SCOPES)
             res[mode] = {"wall_s": wall, "top_level_s": top, "top_level_share": top / wall,
                          "lanes": {k: report[k][0] for k in
@@ -1884,7 +2045,7 @@ def check_adaptive(dev, launch_counts: dict, main_inputs, smi: str,
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        bk.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         cands = find_all_candidates(store, store, MapOptions(), pairwise=True, device=dev)
         call = Candidates.concat([cands, cands.swap_roles()])
@@ -2008,7 +2169,7 @@ def check_adaptive_pipeline(dev, launch_counts: dict, cfg_path: str, genome, smi
     walls, shapes = {}, {}
 
     def timed(what, fn):
-        bk.reset_launches()
+        _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with AdaptiveShapes() as shapes[what]:
@@ -2126,7 +2287,7 @@ def check_legacy(dev, launch_counts: dict, main_inputs, adaptive_recs, cfg_path:
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            bk.reset_launches()
+            _reset_launches()
             t0 = time.perf_counter()
             recs[what] = correct_mod.correct_reads(store, call, opts, device=dev)
             torch.cuda.synchronize()
@@ -2156,7 +2317,7 @@ def check_legacy(dev, launch_counts: dict, main_inputs, adaptive_recs, cfg_path:
     path, prj = _project_config(cfg_path, "project_legacy", "")
     os.environ["NECAT_TPU_FUSED"] = "0"
     try:
-        bk.reset_launches()
+        _reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2229,13 +2390,16 @@ def main() -> int:
     kernels.update(check_kernels(dev, W=64))
     check_slice(dev)
     launch_counts = {}
-    main_res, main_inputs = main_path(dev, launch_counts)
+    held_main, held_polish = HeldChunk(), HeldChunk()
+    main_res, main_inputs = main_path(dev, launch_counts, held_main)
+    kernels.update(check_scatter(held_main, "main"))
     for W in RUNGS:
         kernels.update(check_kernels(
             dev, W=W, k3_words=(1, POLISH_WORDS) if W in WORDS3_RUNGS else (1,)))
     check_rescue(dev, launch_counts)
     cfg_path, genome = check_correct(launch_counts, main_res)
-    check_polish(dev, launch_counts)
+    check_polish(dev, launch_counts, held_polish)
+    kernels.update(check_scatter(held_polish, "polish"))
     fast = check_assemble(launch_counts, cfg_path, genome)
     check_bridge(dev, launch_counts)
     check_bridge_cli(launch_counts, cfg_path)
@@ -2257,10 +2421,11 @@ def main() -> int:
     if elsewhere:
         raise AssertionError(f"K1a/K3a launched outside phases 20, 21 and 22c: {elsewhere}")
     for key, entry in kernels.items():
-        name, W, words = key[:3]
+        name, W, words = key[:3]            # the scatter's key holds D where others hold W
         words_key = {"banded_backtrack_cols": "k3_by_words",
-                     "adaptive_backtrack_cols": "k3a_by_words"}.get(name)
-        by_path = {path: (c[words_key].get((W, words), 0) if words_key
+                     "adaptive_backtrack_cols": "k3a_by_words",
+                     "tag_scatter": "scatter_by_shape"}.get(name)
+        by_path = {path: (c.get(words_key, {}).get((W, words), 0) if words_key
                           else c["by_width"].get((name, W), 0))
                    for path, c in launch_counts.items()}
         entry["launches"] = sum(by_path.values())

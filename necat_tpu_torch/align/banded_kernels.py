@@ -36,6 +36,8 @@ from collections import Counter
 
 import torch
 
+from necat_tpu_torch.utils.build import check, launch, on_cpu
+
 INF = 1 << 20
 OP_DIAG, OP_DEL, OP_INS, OP_PAD = 0, 1, 2, 3
 PAD_BASE = 127       # query padding value (never equals a target base 0..3)
@@ -427,61 +429,28 @@ def adaptive_backtrack_cols_ref(dirs, offs, a, b, la, lb, W: int, words: int = 1
 
 # -------------------------------------------------------------- CUDA wrappers
 
-def _on_cpu(*tensors) -> bool:
-    """True for CPU tensors (plain version), False for CUDA tensors (kernel);
-    raises on mixed or other devices."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"tensors on different devices: "
-                         f"{[str(t.device) for t in tensors]}")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_width(W: int) -> None:
     if W not in KERNEL_WIDTHS:
         raise ValueError(f"band width {W}: the CUDA kernels take W in {KERNEL_WIDTHS}")
 
 
-def _launch(fn, device, *args) -> None:
-    """Launch `fn` on `device`'s current stream; raise on a launch error."""
-    from necat_tpu_torch.utils.build import load_kernels
-    lib = load_kernels()
-    with torch.cuda.device(device):
-        rc = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: CUDA error {rc}")
-
-
 def diag_sub_matrix(a, b, la, lb, W: int, MC: int) -> torch.Tensor:
     """K2: ENC u8[PB, MC, W] from a u8[PB, L], b u8[PB, Lb], la/lb i32[PB]."""
-    if _on_cpu(a, b, la, lb):
+    if on_cpu(a, b, la, lb):
         return diag_sub_matrix_ref(a, b, la, lb, W, MC)
     PB, L = a.shape
-    _check(a, "a", torch.uint8, (PB, L))
-    _check(b, "b", torch.uint8, (PB, b.shape[1]))
-    _check(la, "la", torch.int32, (PB,))
-    _check(lb, "lb", torch.int32, (PB,))
+    check(a, "a", torch.uint8, (PB, L))
+    check(b, "b", torch.uint8, (PB, b.shape[1]))
+    check(la, "la", torch.int32, (PB,))
+    check(lb, "lb", torch.int32, (PB,))
     if W % 4 or MC * (W // 4) >= 1 << 31:
         raise ValueError(f"diag_sub_matrix: W={W} must be a multiple of 4 and "
                          f"MC * W / 4 below 2^31 (MC={MC})")
     out = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
     if out.numel() == 0:
         return out
-    _launch("necat_diag_sub_matrix", a.device, a.data_ptr(), L, b.data_ptr(),
-            b.shape[1], la.data_ptr(), lb.data_ptr(), out.data_ptr(), PB, MC, W)
+    launch("necat_diag_sub_matrix", a.device, a.data_ptr(), L, b.data_ptr(),
+           b.shape[1], la.data_ptr(), lb.data_ptr(), out.data_ptr(), PB, MC, W)
     launches_by_width[("diag_sub_matrix", W)] += 1
     return out
 
@@ -490,41 +459,41 @@ def banded_forward(a, b, la, lb, W: int, max_cols: int | None = None):
     """K1: (dirs u8[PB, MC, W], cost i32[PB]) from a u8[PB, L], b u8[PB, Lb],
     la/lb i32[PB]; MC = max_cols, b's width by default (the signature of
     necat_tpu's banded_forward_pallas)."""
-    if _on_cpu(a, b, la, lb):
+    if on_cpu(a, b, la, lb):
         return banded_forward_ref(a, b, la, lb, W, max_cols)
     PB, L = a.shape
     MC = b.shape[1] if max_cols is None else max_cols
     _check_width(W)
-    _check(a, "a", torch.uint8, (PB, L))
-    _check(b, "b", torch.uint8, (PB, b.shape[1]))
-    _check(la, "la", torch.int32, (PB,))
-    _check(lb, "lb", torch.int32, (PB,))
+    check(a, "a", torch.uint8, (PB, L))
+    check(b, "b", torch.uint8, (PB, b.shape[1]))
+    check(la, "la", torch.int32, (PB,))
+    check(lb, "lb", torch.int32, (PB,))
     dirs = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
     cost = torch.empty((PB,), dtype=torch.int32, device=a.device)
-    _launch("necat_banded_forward", a.device, a.data_ptr(), L, b.data_ptr(),
-            b.shape[1], la.data_ptr(), lb.data_ptr(), dirs.data_ptr(),
-            cost.data_ptr(), PB, MC, W)
+    launch("necat_banded_forward", a.device, a.data_ptr(), L, b.data_ptr(),
+           b.shape[1], la.data_ptr(), lb.data_ptr(), dirs.data_ptr(),
+           cost.data_ptr(), PB, MC, W)
     launches_by_width[("banded_forward", W)] += 1
     return dirs, cost
 
 
 def banded_backtrack_cols(dirs, la, lb, W: int, words: int = 1):
     """K3: (cols i32[PB, MC], tuple of `words` insb i32[PB, MC], lead i32[PB])."""
-    if _on_cpu(dirs, la, lb):
+    if on_cpu(dirs, la, lb):
         return banded_backtrack_cols_ref(dirs, la, lb, W, words)
     PB, MC, _ = dirs.shape
     _check_width(W)
-    _check(dirs, "dirs", torch.uint8, (PB, MC, W))
-    _check(la, "la", torch.int32, (PB,))
-    _check(lb, "lb", torch.int32, (PB,))
+    check(dirs, "dirs", torch.uint8, (PB, MC, W))
+    check(la, "la", torch.int32, (PB,))
+    check(lb, "lb", torch.int32, (PB,))
     if not 1 <= words <= 3:
         raise ValueError(f"words={words}: 1..3 insb words")
     cols = torch.empty((PB, MC), dtype=torch.int32, device=dirs.device)
     insb = torch.empty((words, PB, MC), dtype=torch.int32, device=dirs.device)
     lead = torch.empty((PB,), dtype=torch.int32, device=dirs.device)
-    _launch("necat_banded_backtrack", dirs.device, dirs.data_ptr(), la.data_ptr(),
-            lb.data_ptr(), cols.data_ptr(), insb.data_ptr(), lead.data_ptr(),
-            PB, MC, W, words)
+    launch("necat_banded_backtrack", dirs.device, dirs.data_ptr(), la.data_ptr(),
+           lb.data_ptr(), cols.data_ptr(), insb.data_ptr(), lead.data_ptr(),
+           PB, MC, W, words)
     launches_by_width[("banded_backtrack_cols", W)] += 1
     k3_launches_by_words[(W, words)] += 1
     return cols, tuple(insb), lead
@@ -534,16 +503,16 @@ def banded_forward_adaptive(a, b, la, lb, W: int, max_cols: int | None = None):
     """K1a: (dirs u8[PB, MC, W], offs i32[PB, MC+1], S_fin i32[PB, W], cost
     i32[PB]) from a u8[PB, L], b u8[PB, Lb], la/lb i32[PB]; MC = max_cols,
     b's width by default (the signature of necat_tpu's banded_forward)."""
-    if _on_cpu(a, b, la, lb):
+    if on_cpu(a, b, la, lb):
         return banded_forward_adaptive_ref(a, b, la, lb, W, max_cols)
     PB, L = a.shape
     Lb = b.shape[1]
     MC = Lb if max_cols is None else max_cols
     _check_width(W)
-    _check(a, "a", torch.uint8, (PB, L))
-    _check(b, "b", torch.uint8, (PB, Lb))
-    _check(la, "la", torch.int32, (PB,))
-    _check(lb, "lb", torch.int32, (PB,))
+    check(a, "a", torch.uint8, (PB, L))
+    check(b, "b", torch.uint8, (PB, Lb))
+    check(la, "la", torch.int32, (PB,))
+    check(lb, "lb", torch.int32, (PB,))
     if L < 1 or Lb < 1:
         raise ValueError(f"banded_forward_adaptive: empty rows (L={L}, Lb={Lb})")
     dirs = torch.empty((PB, MC, W), dtype=torch.uint8, device=a.device)
@@ -551,9 +520,9 @@ def banded_forward_adaptive(a, b, la, lb, W: int, max_cols: int | None = None):
     s_fin = torch.empty((PB, W), dtype=torch.int32, device=a.device)
     cost = torch.empty((PB,), dtype=torch.int32, device=a.device)
     if PB:
-        _launch("necat_banded_forward_adaptive", a.device, a.data_ptr(), L, b.data_ptr(),
-                Lb, la.data_ptr(), lb.data_ptr(), dirs.data_ptr(), offs.data_ptr(),
-                s_fin.data_ptr(), cost.data_ptr(), PB, MC, W)
+        launch("necat_banded_forward_adaptive", a.device, a.data_ptr(), L, b.data_ptr(),
+               Lb, la.data_ptr(), lb.data_ptr(), dirs.data_ptr(), offs.data_ptr(),
+               s_fin.data_ptr(), cost.data_ptr(), PB, MC, W)
         launches_by_width[("banded_forward_adaptive", W)] += 1
     return dirs, offs, s_fin, cost
 
@@ -563,17 +532,17 @@ def adaptive_backtrack_cols(dirs, offs, a, b, la, lb, W: int, words: int = 1):
     i32[PB]) from K1a's dirs and offs and the pairs' rows a u8[PB, L], b
     u8[PB, Lb] (adaptive dirs carry the op alone: match and query bases
     come from the rows)."""
-    if _on_cpu(dirs, offs, a, b, la, lb):
+    if on_cpu(dirs, offs, a, b, la, lb):
         return adaptive_backtrack_cols_ref(dirs, offs, a, b, la, lb, W, words)
     PB, MC, _ = dirs.shape
     L, Lb = a.shape[1], b.shape[1]
     _check_width(W)
-    _check(dirs, "dirs", torch.uint8, (PB, MC, W))
-    _check(offs, "offs", torch.int32, (PB, MC + 1))
-    _check(a, "a", torch.uint8, (PB, L))
-    _check(b, "b", torch.uint8, (PB, Lb))
-    _check(la, "la", torch.int32, (PB,))
-    _check(lb, "lb", torch.int32, (PB,))
+    check(dirs, "dirs", torch.uint8, (PB, MC, W))
+    check(offs, "offs", torch.int32, (PB, MC + 1))
+    check(a, "a", torch.uint8, (PB, L))
+    check(b, "b", torch.uint8, (PB, Lb))
+    check(la, "la", torch.int32, (PB,))
+    check(lb, "lb", torch.int32, (PB,))
     if not 1 <= words <= 3:
         raise ValueError(f"words={words}: 1..3 insb words")
     if L < 1 or Lb < 1:
@@ -582,9 +551,9 @@ def adaptive_backtrack_cols(dirs, offs, a, b, la, lb, W: int, words: int = 1):
     insb = torch.empty((words, PB, MC), dtype=torch.int32, device=dirs.device)
     lead = torch.empty((PB,), dtype=torch.int32, device=dirs.device)
     if PB:
-        _launch("necat_adaptive_backtrack", dirs.device, dirs.data_ptr(), offs.data_ptr(),
-                a.data_ptr(), L, b.data_ptr(), Lb, la.data_ptr(), lb.data_ptr(),
-                cols.data_ptr(), insb.data_ptr(), lead.data_ptr(), PB, MC, W, words)
+        launch("necat_adaptive_backtrack", dirs.device, dirs.data_ptr(), offs.data_ptr(),
+               a.data_ptr(), L, b.data_ptr(), Lb, la.data_ptr(), lb.data_ptr(),
+               cols.data_ptr(), insb.data_ptr(), lead.data_ptr(), PB, MC, W, words)
         launches_by_width[("adaptive_backtrack_cols", W)] += 1
         k3a_launches_by_words[(W, words)] += 1
     return cols, tuple(insb), lead

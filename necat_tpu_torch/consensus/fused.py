@@ -135,7 +135,7 @@ def _accept_and_scatter(c, stats6, ident, cutoff, weights, coverage, bufs,
                       bufs["left_leadb"], bufs["left_jc"],
                       bufs["right_cols"], bufs["right_insb"], bufs["right_lead"],
                       bufs["right_leadb"], bufs["right_jc"],
-                      c["at"] + c["ws"], row_eff, w, ts)
+                      c["at"] + c["ws"], row_eff, w, ts.contiguous())
     return torch.cat([stats6, ok.to(torch.int32)[None],
                       deferred.to(torch.int32)[None]], dim=0)
 

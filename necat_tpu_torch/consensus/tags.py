@@ -7,14 +7,24 @@ scatter_pass_cols_mm): the same tags land in the same cells of
     coverage[template_row, t]               (delta-0 columns)
 
 from the per-column encodings of both extension passes. The JAX package sums
-over pairs with a one-hot matrix product for the TPU's matrix unit; here each
-tag plane is one index_add_ on flat indices, computed in the column domain
-(column j of the forward pass sits at t = at + j - 1, of the reversed pass at
-t = at - j). Each plane's landing tags are listed first (nonzero), so the
-additions, atomics on the card, touch only real cells: adding every masked
-cell as a 0 to the trash row cost three quarters of the device time of a
-correction run on an H100. Each listing is a device-to-host sync, timed as
-cns.scatter_sync: eight a chunk.
+over pairs with a one-hot matrix product for the TPU's matrix unit. Here
+scatter_chunk dispatches on the tensors' device:
+
+* CUDA tensors: one launch of the hand-written kernel of csrc/tag_scatter.cu
+  per pass, which adds each landing tag with an atomic and skips a masked
+  cell by a branch; no host sync. Counted by cns.scatter_kernel_chunks
+  (with timing on) and, always, by launches_by_shape.
+* CPU tensors: the plain version, _scatter_pass, in which each tag plane is
+  one index_add_ on flat indices computed in the column domain (column j of
+  the forward pass sits at t = at + j - 1, of the reversed pass at t = at -
+  j). Each plane's landing tags are listed first (nonzero), so the additions
+  touch only real cells: adding every masked cell as a 0 to the trash row
+  cost three quarters of the device time of a correction run on an H100.
+  On a device each listing is a device-to-host sync, timed as
+  cns.scatter_sync: eight a chunk.
+
+In float64 both give the same bits: the sums of the float32 pair weights are
+exact there, whatever the order of the additions.
 
 scatter_pass_cols is the counterpart of the JAX package's scatter formulation
 of the same tags (tags.py:447), which its legacy two-program correction runs:
@@ -24,12 +34,25 @@ insb words, located on the query axis by a running maximum.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from necat_tpu_torch.align.banded_kernels import N_INSB, OP_DEL, OP_DIAG, OP_PAD
-from necat_tpu_torch.utils.logging import timed
+from necat_tpu_torch.utils.build import check, launch, on_cpu
+from necat_tpu_torch.utils.logging import count, timed
 
 GAP_CODE = 4
+
+# scatter_chunk's calls by device type, and the kernel's launches (one a
+# pass) by (D, insb words); reset_launches sets both to 0
+chunks_by_device: Counter = Counter()
+launches_by_shape: Counter = Counter()
+
+
+def reset_launches() -> None:
+    chunks_by_device.clear()
+    launches_by_shape.clear()
 
 
 def _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
@@ -91,6 +114,34 @@ def _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
     add(pl, dm + 1, leadb[pl, dm].long(), tl[pl])
 
 
+def _kernel_args(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row, pair_w,
+                 tsize, reversed_part: bool) -> tuple:
+    """necat_tag_scatter's arguments for one pass of _scatter_pass on the
+    card; raises on what the kernel does not take."""
+    TBp1, D, _, Lt = weights.shape
+    P, MC = cols.shape
+    check(weights, "weights", torch.float64, (TBp1, D, 5, Lt))
+    check(coverage, "coverage", torch.int32, (TBp1, Lt))
+    check(cols, "cols", torch.int32, (P, MC))
+    if not 1 <= len(insb) <= 3:
+        raise ValueError(f"{len(insb)} insb words: the kernel takes 1..3")
+    for x in insb:
+        check(x, "insb", torch.int32, (P, MC))
+    nd = min(D - 1, N_INSB * len(insb))
+    check(leadb, "leadb", torch.uint8, (P, leadb.shape[-1]))
+    if leadb.shape[1] < nd:
+        raise ValueError(f"leadb: {leadb.shape[1]} bases a pair, {nd} insertion planes")
+    for x, name in ((lead, "lead"), (jc, "jc"), (at, "at"), (pair_row, "pair_row"),
+                    (tsize, "tsize")):
+        check(x, name, torch.int32, (P,))
+    check(pair_w, "pair_w", torch.float32, (P,))
+    words = [x.data_ptr() for x in insb] + [None] * (3 - len(insb))
+    return (weights.data_ptr(), coverage.data_ptr(), TBp1 - 1, D, Lt, cols.data_ptr(),
+            *words, nd, lead.data_ptr(), leadb.data_ptr(), leadb.shape[1], jc.data_ptr(),
+            at.data_ptr(), pair_row.data_ptr(), pair_w.data_ptr(), tsize.data_ptr(), P, MC,
+            int(reversed_part))
+
+
 def scatter_chunk(weights, coverage,
                   left_cols, left_insb, left_lead, left_leadb, left_jc,
                   right_cols, right_insb, right_lead, right_leadb, right_jc,
@@ -98,15 +149,30 @@ def scatter_chunk(weights, coverage,
     """Scatter both extension passes of one chunk into weights
     [TB+1, D, 5, Lt] and coverage i32[TB+1, Lt] IN PLACE (the JAX package
     donates both). left_insb/right_insb: tuples of insb words. pair_row == TB
-    (or < 0) drops a pair. weights may hold any float dtype; correct_reads
-    accumulates in float64, where these sums are exact and so independent of
-    the order of the additions."""
-    _scatter_pass(weights, coverage, right_cols, right_insb, right_lead,
-                  right_leadb, right_jc, at, pair_row, pair_w, tsize,
-                  reversed_part=False)
-    _scatter_pass(weights, coverage, left_cols, left_insb, left_lead,
-                  left_leadb, left_jc, at, pair_row, pair_w, tsize,
-                  reversed_part=True)
+    (or < 0) drops a pair. On the CPU weights may hold any float dtype;
+    correct_reads accumulates in float64, where these sums are exact and so
+    independent of the order of the additions, and the kernel takes float64
+    alone. CUDA tensors run the kernel, one launch a pass on the current
+    stream of the weights' device, after both passes' inputs are checked;
+    CPU tensors run the plain version; mixed devices raise."""
+    passes = ((right_cols, right_insb, right_lead, right_leadb, right_jc, False),
+              (left_cols, left_insb, left_lead, left_leadb, left_jc, True))
+    cpu = on_cpu(weights, coverage, at, pair_row, pair_w, tsize,
+                 right_cols, *right_insb, right_lead, right_leadb, right_jc,
+                 left_cols, *left_insb, left_lead, left_leadb, left_jc)
+    chunks_by_device[weights.device.type] += 1
+    if cpu:
+        for cols, insb, lead, leadb, jc, rev in passes:
+            _scatter_pass(weights, coverage, cols, insb, lead, leadb, jc, at, pair_row,
+                          pair_w, tsize, reversed_part=rev)
+    else:
+        launches = [_kernel_args(weights, coverage, cols, insb, lead, leadb, jc, at,
+                                 pair_row, pair_w, tsize, rev)
+                    for cols, insb, lead, leadb, jc, rev in passes]
+        for (_, insb, *_), args in zip(passes, launches):
+            launch("necat_tag_scatter", weights.device, *args)
+            launches_by_shape[(weights.shape[1], len(insb))] += 1
+    count("cns.scatter_kernel_chunks", 0 if cpu else 1)
 
 
 def pad_cols_to(x, Lt: int, fill: int):

@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``necat_tpu_torch/csrc/`` are compiled with ``nvcc`` for
+The sources under ``necat_tpu_torch/csrc/`` (the banded alignment kernels and
+the tag scatter) are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``build/`` at the repository root, and loaded with ``ctypes``. A
 library newer than every source is reused. Nothing is built when a module is
 imported: the CPU tests import every module on machines without ``nvcc``.
+
+Every wrapper of a kernel in the library dispatches with ``on_cpu``, checks
+its inputs with ``check`` and launches with ``launch``.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -33,6 +39,8 @@ SIGNATURES = {
                                       _P],
     "necat_adaptive_backtrack": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
+    "necat_tag_scatter": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _P],
 }
 
 
@@ -74,3 +82,37 @@ def load_kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_cpu(*tensors) -> bool:
+    """True for CPU tensors (plain version), False for CUDA tensors (kernel);
+    raises on mixed or other devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless `t` has this dtype and shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn: str, device, *args) -> None:
+    """Launch the library's `fn` on `device`'s current stream; raise on a
+    launch error."""
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}")

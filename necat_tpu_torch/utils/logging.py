@@ -74,8 +74,13 @@ PORT_ONLY = (
     # host seconds blocked at the scatter's nonzero calls (tags._scatter_pass,
     # four per pass, two passes a chunk), each a device-to-host sync that
     # waits for all work queued before it; the JAX package's matrix-product
-    # scatter has fixed shapes and no sync
+    # scatter has fixed shapes and no sync. Only the plain version, which CPU
+    # tensors run, enters it: the card's kernel lists nothing
     "cns.scatter_sync",
+    # counter: the chunks scattered by the CUDA kernel (tags.scatter_chunk on
+    # CUDA tensors, two launches a chunk, no sync): on the card as many as
+    # cns.tag_scatter's calls, on the CPU 0
+    "cns.scatter_kernel_chunks",
     # the two parts of cns.compact: the template rows (views of the read
     # store, one a bucket row) and the per-template slicing of the
     # consensus stream into pieces (compact_from_stream)

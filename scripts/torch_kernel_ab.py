@@ -67,6 +67,8 @@ def build_all(specs):
         print(f"built {name}: " + " | ".join(regs), flush=True)
         lib = ctypes.CDLL(out)
         for fn, argtypes in (OLD_SIGNATURES if name == "old" else SIGNATURES).items():
+            if not hasattr(lib, fn):      # an older checkout's library lacks the newer kernels
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib

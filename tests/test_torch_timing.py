@@ -37,9 +37,9 @@ LANES = ("ext.lanes", "ext.real_lanes", "ext.cell_Mlanes")
 # scopes timed once per shard by the candidate search's per-device threads
 PER_SHARD = ("cand.limits", "cand.dispatch", "cand.exec", "cand.stats_sync")
 # the port-only names (logging.PORT_ONLY) of the fused main path
-FUSED_PORT_ONLY = {"cns.tag_scatter", "cns.scatter_sync", "cns.padded_batch",
-                   "cns.compact_packed", "cns.emit_records", "ext.live_Mcols",
-                   "cns.download_MB"}
+FUSED_PORT_ONLY = {"cns.tag_scatter", "cns.scatter_sync", "cns.scatter_kernel_chunks",
+                   "cns.padded_batch", "cns.compact_packed", "cns.emit_records",
+                   "ext.live_Mcols", "cns.download_MB"}
 
 
 def _jax_main(jrs):
@@ -166,11 +166,15 @@ def test_port_only_names_are_not_jax_scopes():
 @pytest.mark.parametrize("mode", ["on", "sync", "trace"])
 def test_scatter_syncs_eight_per_chunk(main_runs, mode):
     """cns.tag_scatter times each scatter_chunk call of the fused path, and
-    cns.scatter_sync each of its eight listings (four a pass)."""
+    cns.scatter_sync each of its eight listings (four a pass). This holds the
+    CPU path, the plain version; on the card the kernel lists nothing, and
+    tests/test_torch_tag_scatter_kernel.py holds its counter there. Here
+    cns.scatter_kernel_chunks reads 0."""
     rep, n = main_runs["port"][mode][2], main_runs["seen"][mode]["scatter_chunk"]
     assert n > 0
     assert rep["cns.tag_scatter"][1] == n
     assert rep["cns.scatter_sync"][1] == 8 * n
+    assert rep["cns.scatter_kernel_chunks"] == (0, 0)
 
 
 @pytest.mark.parametrize("mode", ["on", "sync", "trace"])
